@@ -9,9 +9,11 @@ Phases (each must pass; any failure exits non-zero):
 1. build: compile every kernel in dumpvdl2_tpu_torch/csrc (one nvcc per
    source, in parallel) and print the card's name and power limit;
 2. K1 (the sync-metric CUDA kernel) against its plain PyTorch version on
-   the card, at the wideband main-path shape (256, 108 844) and at a
-   ragged (5, 4321): identical inf masks, |d err| < 1e-3, |d freq| < 1e-5;
-   kernel and plain timings, the bound, the launch count;
+   the card: random phases at the wideband main-path shape (256, 108 844)
+   and at ragged shapes (rows of every length mod 4, tile edges, 70 000
+   channels), identical inf masks, |d err| < 1e-3, |d freq| < 1e-5; the
+   real phases of the wideband scene's first block, identical detection
+   masks; kernel and plain timings and the bound at the main shape;
 3. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
@@ -38,21 +40,38 @@ import numpy as np
 import torch
 
 from dumpvdl2_tpu_torch import kernels
-from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE
-from dumpvdl2_tpu_torch.core.pipeline import VDL2Pipeline
+from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE, SYNC_THRESHOLD
+from dumpvdl2_tpu_torch.core.device import process_block_detect
+from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
 from dumpvdl2_tpu_torch.dsp import sync_kernel
 from dumpvdl2_tpu_torch.dsp.frontend import to_planar
 from dumpvdl2_tpu_torch.sim import frame_with_fcs, synthesize_iq_raw
 
 CENTER = 136.975e6
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
-# K1 float operations per output sample: 16 ramp subtractions, 15
-# differences, 30 unwrap compares, 45 adds (adjustment, running sum,
-# unwrapped value), 16 adds + 1 divide (mean), 16 subtractions
-# (de-mean), 32 multiply-adds + 1 divide (slope), 64 for the residual
-# (multiply, subtract, square, add).
-K1_FLOPS_PER_SAMPLE = 16 + 15 + 30 + 45 + 17 + 16 + 33 + 64
+ISSUE_LANES_PER_SM = 128        # 4 schedulers x 32 lanes, 1 instruction/clock
+# K1's least instructions per output sample (n >= 150), by kind.  A
+# multiply-add counts once only where it can fuse; compares, selects and
+# lone adds count 1 each.  Subtracting the three zero preamble phases
+# needs no instruction.  An unwrap step takes three: one compare of |d|
+# with pi (the absolute value is an operand modifier), copysign(2 pi, d)
+# as one logic op, and cum - that under the compare's predicate; like
+# the plain version, |d| == pi and NaN add nothing.
+K1_OPS_PER_OUTPUT = {
+    # de-ramp 13, differences 15, unwrapped values 15, mean sum 15,
+    # de-mean 16
+    "add": 13 + 15 + 15 + 15 + 16,
+    "compare": 15,              # |d| > pi per unwrap step
+    "copysign": 15,             # +-2 pi with the sign of d
+    "conditional add": 15,      # the running unwrap sum
+    "multiply": 2,              # mean (x 1/16) and slope (x 1/340)
+    "fma": 16 + 16 + 16,        # slope, residual, residual sum of squares
+}
+# Ragged K1 shapes: rows of every length mod 4 (unaligned row starts),
+# the first output at n = 150, one and two tiles plus one output, and
+# more channels than a grid dimension holds.
+K1_RAGGED = [(5, 4321), (1, 150), (1, 151), (1, 2198), (1, 2199),
+             (1, 2721), (2, 2870), (2, 2871), (3, 5441), (70000, 200)]
 WIDEBAND_BLOCK = 52428 * 80     # multiple of 80 nearest 2**22
 WIDEBAND_BLOCKS = 6             # the EOF flush is paid once per stream
 
@@ -83,33 +102,99 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_k1(C: int, M: int, seed: int) -> dict:
-    """K1 against its plain version on one (C, M) input on the card."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    ph = (torch.rand((C, M), generator=gen, device="cuda") * 2 - 1) * np.pi
-    e_k, f_k = sync_kernel.sync_error_metric_cuda(ph)
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k1_bound(C: int, M: int, sms: int, clock_hz: float) -> dict:
+    """Least time for K1 on a (C, M) input: the larger of its bytes
+    (read the phases, write err and freq) over the memory rate and its
+    least instructions (K1_OPS_PER_OUTPUT per output with n >= 150) over
+    the card's issue rate."""
+    outputs = C * max(M - sync_kernel.LOOKBACK, 0)
+    bytes_ms = 12 * C * M / HBM_BYTES_PER_S * 1e3
+    ops = sum(K1_OPS_PER_OUTPUT.values()) * outputs
+    ops_ms = ops / (ISSUE_LANES_PER_SM * sms * clock_hz) * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def compare_k1(ph: torch.Tensor, label: str,
+               kernel=sync_kernel.sync_error_metric_cuda
+               ) -> tuple[dict, tuple]:
+    """``kernel`` (K1, or a build of a variant of its source) against the
+    plain version on the card's ``ph``: identical inf masks,
+    |d err| < 1e-3, |d freq| < 1e-5."""
+    e_k, f_k = kernel(ph)
     e_p, f_p = sync_kernel.sync_error_metric_plain(ph)
     torch.cuda.synchronize()
     inf_k, inf_p = torch.isinf(e_k), torch.isinf(e_p)
     if not torch.equal(inf_k, inf_p):
-        raise AssertionError(f"K1 inf mask differs at {(C, M)}")
+        raise AssertionError(f"K1 inf mask differs on {label}")
     fin = ~inf_p
     d_err = (e_k[fin] - e_p[fin]).abs().max().item() if fin.any() else 0.0
     d_freq = (f_k - f_p).abs().max().item()
-    log(f"K1 {(C, M)}: max|d err| {d_err:.3e} (< 1e-3), "
+    log(f"K1 {label}: max|d err| {d_err:.3e} (< 1e-3), "
         f"max|d freq| {d_freq:.3e} (< 1e-5)")
     if not (d_err < 1e-3 and d_freq < 1e-5):
-        raise AssertionError(f"K1 disagrees with its plain version at "
-                             f"{(C, M)}")
+        raise AssertionError(f"K1 disagrees with its plain version on "
+                             f"{label}")
+    return {"max_abs_err": d_err, "max_abs_freq_err": d_freq}, (e_k, e_p)
+
+
+def random_phases(C: int, M: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand((C, M), generator=gen, device="cuda") * 2 - 1) * np.pi
+
+
+def check_k1(C: int, M: int, seed: int) -> dict:
+    """K1 against its plain version on random phases of shape (C, M)."""
+    return compare_k1(random_phases(C, M, seed), str((C, M)))[0]
+
+
+def time_k1(C: int, M: int, seed: int) -> dict:
+    """Kernel and plain-version times on random (C, M) phases, and the
+    bound on this card."""
+    ph = random_phases(C, M, seed)
     ms = cuda_ms(lambda: sync_kernel.sync_error_metric_cuda(ph), 50)
     plain_ms = cuda_ms(lambda: sync_kernel.sync_error_metric_plain(ph), 5)
-    nbytes = 12 * C * M                  # read phases, write err + freq
-    flops = K1_FLOPS_PER_SAMPLE * C * max(M - sync_kernel.LOOKBACK, 0)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
-    return {"shape": [C, M], "max_abs_err": d_err, "max_abs_freq_err": d_freq,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    bound = k1_bound(C, M, sms, clock)
+    log(f"K1 at {(C, M)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; bytes "
+        f"{bound['bytes_ms']:.4f}, issue {bound['ops_ms']:.4f} at "
+        f"{sum(K1_OPS_PER_OUTPUT.values())} instructions/output, {sms} "
+        f"SMs, {clock / 1e6:.0f} MHz); {ms / bound['bound_ms']:.2f}x the "
+        f"bound")
+    return {"shape": [C, M], "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def check_k1_real(freqs, fs, os_, sig) -> dict:
+    """K1 against its plain version on the phase plane of the wideband
+    scene's first block (real preambles): identical detection masks."""
+    pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+    _, phases, *_ = process_block_detect(
+        sig[:, :WIDEBAND_BLOCK], pipe.taps, pipe.dphi, 0, pipe.carry,
+        pipe.hist, os_, DEFAULT_HALO)
+    res, (e_k, e_p) = compare_k1(phases.contiguous(), "wideband block 0 "
+                                 f"{tuple(phases.shape)}")
+
+    def detections(err):
+        return (err[:, :-1] < SYNC_THRESHOLD) & (err[:, 1:] > err[:, :-1])
+
+    m_k, m_p = detections(e_k), detections(e_p)
+    if not torch.equal(m_k, m_p):
+        raise AssertionError(f"K1 detection mask differs on the wideband "
+                             f"block: {(m_k != m_p).sum().item()} samples")
+    log(f"K1 wideband block 0: detection masks identical, "
+        f"{int(m_k.sum().item())} detections")
+    return res
 
 
 def correctness_vector() -> dict:
@@ -199,8 +284,8 @@ def run_wideband(freqs, fs, os_, sig, step_ms=None):
     return frames
 
 
-def wideband_main_path() -> tuple[int, dict]:
-    freqs, fs, os_, sig, want = wideband_scene()
+def wideband_main_path(scene) -> tuple[int, dict]:
+    freqs, fs, os_, sig, want = scene
     # warm-up on a fresh pipeline: library handles, allocator pools
     run_wideband(freqs, fs, os_, sig[:, :WIDEBAND_BLOCK].contiguous()
                  .repeat(1, WIDEBAND_BLOCKS))
@@ -256,16 +341,15 @@ def main() -> int:
     card = card_line()
     log(card)
 
-    k1_main = check_k1(256, 108844, seed=0)
-    k1_ragged = check_k1(5, 4321, seed=1)
-    log(f"K1 at {k1_main['shape']}: kernel {k1_main['ms']:.4f} ms, plain "
-        f"{k1_main['plain_ms']:.4f} ms, bound {k1_main['bound_ms']:.4f} ms "
-        f"({k1_main['bound_by']})")
-    log(f"K1 at {k1_ragged['shape']}: kernel {k1_ragged['ms']:.4f} ms, "
-        f"plain {k1_ragged['plain_ms']:.4f} ms")
+    checks = [check_k1(256, 108844, seed=0)]
+    checks += [check_k1(C, M, seed=i + 1)
+               for i, (C, M) in enumerate(K1_RAGGED)]
+    scene = wideband_scene()
+    checks.append(check_k1_real(*scene[:4]))
+    k1_main = time_k1(256, 108844, seed=0)
 
     vec = correctness_vector()
-    k1_launches, wb = wideband_main_path()
+    k1_launches, wb = wideband_main_path(scene)
 
     kernels_line = {"kernels": [{
         "name": "sync_error_metric",
@@ -273,14 +357,15 @@ def main() -> int:
         "source": "dumpvdl2_tpu_torch/csrc/sync_metric.cu",
         "replaces": "dumpvdl2_tpu/dsp/sync_pallas.py:117",
         "launches": k1_launches,
-        "max_abs_err": max(k1_main["max_abs_err"], k1_ragged["max_abs_err"]),
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": k1_main["ms"],
         "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
     }]}
-    log(json.dumps({"wideband": wb, "vector": vec, "card": card}))
+    log(json.dumps({"wideband": wb, "vector": vec, "k1": k1_main,
+                    "card": card}))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

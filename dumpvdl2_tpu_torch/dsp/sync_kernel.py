@@ -65,21 +65,7 @@ def sync_error_metric_plain(phases: torch.Tensor
                                    device=dev), freq], dim=1))
 
 
-def _launch_fn():
-    from .. import kernels
-    lib = kernels.load("sync_metric")
-    fn = lib.sync_metric_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def sync_error_metric_cuda(phases: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel K1 on the current stream (no fallback)."""
-    global launches
+def _check(phases: torch.Tensor) -> None:
     if phases.device.type != "cuda":
         raise ValueError("sync_error_metric_cuda needs a CUDA tensor")
     if phases.dtype != torch.float32 or phases.dim() != 2:
@@ -87,14 +73,26 @@ def sync_error_metric_cuda(phases: torch.Tensor
                          f"{phases.dtype} {tuple(phases.shape)}")
     if not phases.is_contiguous():
         raise ValueError("phases must be contiguous")
+    if phases.shape[1] >= 2 ** 31:     # M is a C int
+        raise ValueError(f"unsupported shape {tuple(phases.shape)}")
+
+
+def run_library(lib: ctypes.CDLL, phases: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``lib``'s ``sync_metric_launch`` (a build of
+    ``csrc/sync_metric.cu`` or of a variant of it) on the current stream.
+    Counts nothing: :func:`sync_error_metric_cuda` is the counted path."""
+    _check(phases)
     C, M = phases.shape
-    if C > 65535 or M >= 2 ** 31:      # grid.y limit; M is a C int
-        raise ValueError(f"unsupported shape {(C, M)}")
     err = torch.empty_like(phases)
     freq = torch.empty_like(phases)
     if C == 0 or M == 0:
         return err, freq
-    fn = _launch_fn()
+    fn = lib.sync_metric_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     with torch.cuda.device(phases.device):
         stream = torch.cuda.current_stream(phases.device).cuda_stream
         rc = fn(phases.data_ptr(), err.data_ptr(), freq.data_ptr(),
@@ -102,8 +100,20 @@ def sync_error_metric_cuda(phases: torch.Tensor
     if rc != 0:
         raise RuntimeError(f"sync_metric kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
     return err, freq
+
+
+def sync_error_metric_cuda(phases: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel K1 on the current stream (no fallback)."""
+    global launches
+    _check(phases)
+    if phases.numel() == 0:
+        return torch.empty_like(phases), torch.empty_like(phases)
+    from .. import kernels
+    out = run_library(kernels.load("sync_metric"), phases)
+    launches += 1
+    return out
 
 
 def sync_error_metric(phases: torch.Tensor

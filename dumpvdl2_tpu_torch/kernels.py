@@ -6,7 +6,9 @@ own shared library with a plain C entry point, loaded with ``ctypes``
 happen at first use into ``_build/`` beside this file, named by a hash
 of the source and the flags so a changed source never loads a stale
 library.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build_all` starts one ``nvcc`` per source, all at once;
+:func:`build_file` builds any other source (a variant under test) the
+same way.
 """
 from __future__ import annotations
 
@@ -44,30 +46,29 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD / f"{name}.{h.hexdigest()[:12]}.so"
+    return BUILD / f"{src.stem}.{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = _lib_path(name)
+def _start_build(src: Path) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = _lib_path(src)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, job) -> str:
+def _finish_build(src: Path, job) -> str:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
     os.replace(tmp, out)
     return log
 
@@ -81,24 +82,29 @@ def build_all() -> dict[str, dict]:
     """
     t0 = time.perf_counter()
     with _LOCK:
-        jobs = {n: _start_build(n) for n in sources()}
-        logs = {n: _finish_build(n, j) if j is not None else ""
-                for n, j in jobs.items()}
+        jobs = {n: _start_build(CSRC / f"{n}.cu") for n in sources()}
+        logs = {n: _finish_build(CSRC / f"{n}.cu", j) if j is not None
+                else "" for n, j in jobs.items()}
     dt = time.perf_counter() - t0
     return {n: {"seconds": dt, "log": logs[n]} for n in logs}
+
+
+def build_file(src: Path) -> tuple[Path, str]:
+    """Build one CUDA source, at any path, as the kernels are built.
+
+    Returns the library's path and nvcc's -Xptxas -v report (empty if
+    it was built already).
+    """
+    with _LOCK:
+        job = _start_build(src)
+        log = _finish_build(src, job) if job is not None else ""
+    return _lib_path(src), log
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            job = _start_build(name)
-            if job is not None:
-                _finish_build(name, job)
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            _LIBS[name] = lib
+    if lib is None:
+        path, _ = build_file(CSRC / f"{name}.cu")
+        lib = _LIBS.setdefault(name, ctypes.CDLL(str(path)))
     return lib

@@ -26,8 +26,14 @@ def cuda():
     return torch.device("cuda")
 
 
+# Ragged shapes for K1's tiling (2720 outputs a tile): rows of every
+# length mod 4, the first output at n = 150, one and two tiles plus one
+# output, and more channels than a grid dimension holds.
 @pytest.mark.parametrize("C,M", [(5, 4321), (256, 2000), (3, 120),
-                                 (1, 151), (7, 256 + 150)])
+                                 (1, 151), (7, 256 + 150), (1, 150),
+                                 (1, 2198), (1, 2199), (1, 2721),
+                                 (2, 2870), (2, 2871), (3, 5441),
+                                 (70000, 200)])
 def test_k1_matches_plain(cuda, C, M):
     rng = np.random.default_rng(C * 10000 + M)
     ph = torch.as_tensor(rng.uniform(-np.pi, np.pi, (C, M))
