@@ -14,16 +14,33 @@ Phases (each must pass; any failure exits non-zero):
    channels), identical inf masks, |d err| < 1e-3, |d freq| < 1e-5; the
    real phases of the wideband scene's first block, identical detection
    masks; kernel and plain timings and the bound at the main shape;
-3. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
+3. G1 and G2 (the gate kernels, csrc/gate.cu) against their plain
+   PyTorch versions on the card: random grids at the wideband shape
+   (C = 256, K = 64 slots, 51 floor crossings), edge cases (one channel,
+   ragged channel counts, no L2 rows, indices that wrap int32, negative
+   bit counts, no crossings), and the real gate inputs of a wideband
+   block.  G1's integer outputs must be equal; G2's floats must be equal
+   bit for bit, or else within 1e-6 relative (the script says which).
+   Kernel and plain timings and the bounds;
+4. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
    back byte for byte on its channel (run twice, the second run timed);
-4. wideband main path: 256 channels at oversample 80 (8.4 Msps), six
-   device-resident blocks of 4 194 240 samples with 24 bursts on
-   stride-4 channels through feed_planar + finish; all 24 payloads must
-   decode and K1 must have launched on that run.  Prints the sustained
-   ingest rate, the realtime factor, the per-block step breakdown and
-   peak device memory.
+5. wideband main path, device-gated (the default): 256 channels at
+   oversample 80 (8.4 Msps), six device-resident blocks of 4 194 240
+   samples with 24 bursts on stride-4 channels through feed_planar +
+   finish; all 24 payloads must decode and K1, G1 and G2 must each have
+   launched on that run.  Prints the sustained ingest rate, the realtime
+   factor, the per-block step breakdown, the finish() time and peak
+   device memory;
+6. the host-gated path (device_gate=False) on the same scene: all its
+   payloads must decode and its frames equal the gated run's (bytes and
+   freq exact, nf_pwr_dbfs within 2e-4 dB); its realtime factor and
+   breakdown beside the gated ones;
+7. the CLI on the card: the correctness vector written as an S16_LE file
+   and decoded by ``python3 -m dumpvdl2_tpu_torch`` (default platform,
+   the GPU) in a subprocess; it must exit 0 and give one JSON record
+   per burst on its frequency.
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when
@@ -32,8 +49,10 @@ no CUDA device is present.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,10 +60,12 @@ import torch
 
 from dumpvdl2_tpu_torch import kernels
 from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE, SYNC_THRESHOLD
+from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
 from dumpvdl2_tpu_torch.dsp import sync_kernel
 from dumpvdl2_tpu_torch.dsp.frontend import to_planar
+from dumpvdl2_tpu_torch.io import rawframes
 from dumpvdl2_tpu_torch.sim import frame_with_fcs, synthesize_iq_raw
 
 CENTER = 136.975e6
@@ -72,8 +93,18 @@ K1_OPS_PER_OUTPUT = {
 # more channels than a grid dimension holds.
 K1_RAGGED = [(5, 4321), (1, 150), (1, 151), (1, 2198), (1, 2199),
              (1, 2721), (2, 2870), (2, 2871), (3, 5441), (70000, 200)]
+# Gate kernels' least instructions: G1 per candidate slot (the compares
+# of the decision chain, the row gather, the ppm product and quotient,
+# the busy and watermark updates); G2 per valid floor crossing (two
+# multiplies, a min, two adds) and per (candidate, valid crossing) pair
+# of the read-out (a compare and a count).  Both move more bytes than
+# they issue instructions, so their bound is set by bytes.
+G1_OPS_PER_SLOT = 20
+G2_OPS_PER_CROSSING = 5
+G2_OPS_PER_READ = 2
 WIDEBAND_BLOCK = 52428 * 80     # multiple of 80 nearest 2**22
 WIDEBAND_BLOCKS = 6             # the EOF flush is paid once per stream
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -100,6 +131,26 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float | None:
+    """Mean device milliseconds a call of the CUDA kernels whose name
+    contains ``kernel``, over ``reps`` calls of ``fn()``, from the
+    torch.profiler's kernel records; None when it records none.  Unlike
+    cuda_ms, host time between launches does not count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += getattr(ev, "device_time_total",
+                                getattr(ev, "cuda_time_total", 0.0))
+    return total_us / reps / 1e3 if total_us > 0 else None
 
 
 def max_sm_clock_hz() -> float:
@@ -162,6 +213,8 @@ def time_k1(C: int, M: int, seed: int) -> dict:
     bound on this card."""
     ph = random_phases(C, M, seed)
     ms = cuda_ms(lambda: sync_kernel.sync_error_metric_cuda(ph), 50)
+    prof_ms = device_ms(lambda: sync_kernel.sync_error_metric_cuda(ph), 20,
+                        "sync_metric_kernel")
     plain_ms = cuda_ms(lambda: sync_kernel.sync_error_metric_plain(ph), 5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
@@ -171,8 +224,9 @@ def time_k1(C: int, M: int, seed: int) -> dict:
         f"{bound['bytes_ms']:.4f}, issue {bound['ops_ms']:.4f} at "
         f"{sum(K1_OPS_PER_OUTPUT.values())} instructions/output, {sms} "
         f"SMs, {clock / 1e6:.0f} MHz); {ms / bound['bound_ms']:.2f}x the "
-        f"bound")
-    return {"shape": [C, M], "ms": ms, "plain_ms": plain_ms, **bound}
+        f"bound; profiler device time {prof_ms} ms")
+    return {"shape": [C, M], "ms": ms, "profiler_ms": prof_ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def check_k1_real(freqs, fs, os_, sig) -> dict:
@@ -197,9 +251,226 @@ def check_k1_real(freqs, fs, os_, sig) -> dict:
     return res
 
 
-def correctness_vector() -> dict:
-    """Three-burst vector (strong / marginal / near-cap), 8 channels at
-    oversample 20, through the port's pipeline on the card."""
+def gate_grid(C: int, K: int, seed: int, B: int | None = None,
+              base: int = 0, no_rows: bool = False,
+              negative_bits: bool = False) -> tuple:
+    """Random G1 inputs on the card (argument order of gate_kernel.gate
+    without max_ppm and eof): candidates in time order per channel,
+    some with too few symbols, failed headers, L2 rows of -1 and
+    ppm far past 5; ``base`` offsets every index (int32 wrap near
+    2^31)."""
+    rng = np.random.default_rng(seed)
+    B = C * K if B is None else B
+    count = rng.integers(0, K + 1, C).astype(np.int32)
+    det = np.full((C, K), -1, np.int64)
+    for c in range(C):
+        n = int(count[c])
+        det[c, :n] = np.sort(rng.choice(np.arange(60, 3000 + 50 * K),
+                                        size=n, replace=False))
+    sync = np.where(det >= 0, det - rng.integers(1, 4, (C, K)), -1)
+    det = ((det + base + 2**31) % 2**32 - 2**31).astype(np.int32)
+    sync = ((sync + base + 2**31) % 2**32 - 2**31).astype(np.int32)
+    sym_valid = np.where(rng.random((C, K)) < 0.2, rng.integers(0, 12, (C, K)),
+                         rng.integers(0, 600, (C, K))).astype(np.int32)
+    hdr_rows = rng.random(B) >= 0.3
+    bits_rows = (3 * rng.integers(12, 500, B)
+                 - rng.integers(0, 3, B)).astype(np.int32)
+    if negative_bits:
+        bits_rows = -bits_rows
+    dphi = rng.normal(0.0, 0.004, (C, K))
+    hot = rng.random((C, K)) < 0.15
+    dphi = np.where(hot, rng.choice([-1.0, 1.0], (C, K))
+                    * rng.uniform(0.65, 1.2, (C, K)), dphi).astype(np.float32)
+    l2_row = np.where(rng.random((C, K)) < 0.05, -1,
+                      rng.integers(0, B, (C, K))).astype(np.int32)
+    if no_rows:
+        l2_row[:] = -1
+    busy = (rng.integers(0, 500, C) + base).astype(np.int64)
+    busy = ((busy + 2**31) % 2**32 - 2**31).astype(np.int32)
+    nxt = rng.integers(0, 500, C).astype(np.int32)
+    freqs = (CENTER + 25e3 * (np.arange(C) - C // 2)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device="cuda") for x in (
+        count, det, sync, sym_valid, dphi, l2_row, hdr_rows, bits_rows,
+        busy, nxt, freqs))
+
+
+def compare_g1(args: tuple, max_ppm: float, eof: bool, label: str) -> None:
+    """G1 against its plain version: every output equal."""
+    g_k, bits_k = gate_kernel.gate_cuda(*args, max_ppm, eof)
+    g_p, bits_p = gate_kernel.gate_plain(*args, max_ppm, eof)
+    torch.cuda.synchronize()
+    for key in ("verdicts", "busy_until", "next_det_min", "deferred_at"):
+        if not torch.equal(g_k[key], g_p[key]):
+            n = (g_k[key] != g_p[key]).sum().item()
+            raise AssertionError(f"G1 {key} differs on {label}: {n} values")
+    if not torch.equal(bits_k, bits_p):
+        raise AssertionError(f"G1 bits differ on {label}")
+
+
+def nf_grid(C: int, cap: int, K: int, seed: int,
+            no_crossings: bool = False) -> tuple:
+    """Random G2 inputs on the card: valid crossings a prefix of
+    nondecreasing stream columns, as _nf_track makes them."""
+    rng = np.random.default_rng(seed)
+    y = rng.exponential(0.05, (C, cap)).astype(np.float32)
+    y[rng.random((C, cap)) < 0.05] = 2.5
+    nf0 = rng.uniform(0.01, 2.0, C).astype(np.float32)
+    y[:, 0] = np.where(rng.random(C) < 0.1, nf0, y[:, 0])      # ties
+    ncross = np.zeros(C, np.int64) if no_crossings \
+        else rng.integers(0, cap + 1, C)
+    valid = np.arange(cap)[None, :] < ncross[:, None]
+    jc = np.sort(rng.integers(0, 1000 * cap + 64, (C, cap)), axis=1) \
+        .astype(np.int32)
+    bound = rng.integers(-5, 1000 * cap + 64, (C, K)).astype(np.int32)
+    return tuple(torch.as_tensor(x, device="cuda")
+                 for x in (y, valid, jc, bound, nf0))
+
+
+def compare_g2(args: tuple, label: str) -> dict:
+    """G2 against its plain version: bit for bit, or else within 1e-6
+    relative; returns the max abs error and whether it was bitwise."""
+    out_k = gate_kernel.nf_floor_cuda(*args)
+    out_p = gate_kernel.nf_floor_plain(*args)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    err = max((a - b).abs().max().item() if a.numel() else 0.0
+              for a, b in zip(out_k, out_p))
+    rel = max(((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+              if a.numel() else 0.0 for a, b in zip(out_k, out_p))
+    if not bitwise and not rel <= 1e-6:
+        raise AssertionError(f"G2 disagrees with its plain version on "
+                             f"{label}: max rel {rel:.3e}")
+    return {"max_abs_err": err, "bitwise": bitwise}
+
+
+def g1_bound(C: int, K: int, B: int, sms: int, clock_hz: float) -> dict:
+    """Least time for G1: each input read once (seven (C, K) or (C,)
+    int32/float32 planes, the (B,) rows), each output written once, or
+    G1_OPS_PER_SLOT instructions a slot at the card's issue rate."""
+    nbytes = 4 * C + 5 * 4 * C * K + 5 * B + 3 * 4 * C \
+        + 5 * C * K + 3 * 4 * C
+    ops = G1_OPS_PER_SLOT * C * K
+    return _bound(nbytes, ops, sms, clock_hz)
+
+
+def g2_bound(args: tuple, sms: int, clock_hz: float) -> dict:
+    """Least time for G2 on these inputs: bytes of y_cross, valid, jc,
+    bound and the floor in, the floor and readings out; or the
+    recurrence over this run's valid crossings and the read-out's
+    compares, at the card's issue rate."""
+    y, valid, _jc, bound, _nf0 = args
+    C, cap = y.shape
+    K = bound.shape[1]
+    n_valid = int(valid.sum().item())
+    nbytes = 9 * C * cap + 4 * C * K + 4 * C + 4 * C + 4 * C * K
+    ops = G2_OPS_PER_CROSSING * n_valid + G2_OPS_PER_READ * K * n_valid
+    return _bound(nbytes, ops, sms, clock_hz)
+
+
+def _bound(nbytes: int, ops: int, sms: int, clock_hz: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / (ISSUE_LANES_PER_SM * sms * clock_hz) * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def capture_gate_inputs(freqs, fs, os_, sig) -> tuple:
+    """The arguments G1 and G2 get on the second wideband block of the
+    gated pipeline (real candidates, L2 rows and floor crossings)."""
+    calls = {"gate": [], "nf_floor": []}
+    orig = {k: getattr(gate_kernel, k) for k in calls}
+
+    def spy(name):
+        def fn(*a, **kw):
+            calls[name].append((a, kw))
+            return orig[name](*a, **kw)
+        return fn
+
+    pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+    try:
+        for k in calls:
+            setattr(gate_kernel, k, spy(k))
+        for b in range(2):
+            pipe.feed_planar(sig[:, b * WIDEBAND_BLOCK:
+                                 (b + 1) * WIDEBAND_BLOCK])
+    finally:
+        for k, fn in orig.items():
+            setattr(gate_kernel, k, fn)
+    pipe.finish()
+    return calls["gate"][-1], calls["nf_floor"][-1]
+
+
+def check_gates(scene) -> tuple[dict, dict]:
+    """G1 and G2 against their plain versions on random grids, edge
+    cases and a real wideband block; their timings and bounds."""
+    C, K, cap = 256, 64, 51
+    cases = [("wideband (256, 64)", gate_grid(C, K, 1), 5.0, False),
+             ("wideband (256, 64) eof", gate_grid(C, K, 2), 0.0, True),
+             ("(1, 1)", gate_grid(1, 1, 3), 5.0, False),
+             ("(300, 8) one L2 row", gate_grid(300, 8, 4, B=1), 5.0, False),
+             ("(256, 64) no L2 rows", gate_grid(C, K, 5, no_rows=True),
+              0.0, False),
+             ("(256, 64) wrapping int32", gate_grid(C, K, 6, base=2**31 - 900),
+              5.0, False),
+             ("(129, 64) negative bits", gate_grid(129, K, 7,
+                                                   negative_bits=True),
+              5.0, True)]
+    for label, args, max_ppm, eof in cases:
+        compare_g1(args, max_ppm, eof, label)
+    log(f"G1: equal to its plain version on {len(cases)} grids")
+    g2 = [compare_g2(nf_grid(C, cap, K, 10), "wideband (256, 51, 64)"),
+          compare_g2(nf_grid(1, 1, 1, 11), "(1, 1, 1)"),
+          compare_g2(nf_grid(300, 3, 8, 12), "(300, 3, 8)"),
+          compare_g2(nf_grid(C, cap, K, 13, no_crossings=True),
+                     "no crossings")]
+    (ga, _), (na, _) = capture_gate_inputs(*scene[:4])
+    compare_g1(ga[:11], ga[11], ga[12], "real wideband block")
+    g2.append(compare_g2(na, "real wideband block"))
+    bitwise = all(r["bitwise"] for r in g2)
+    g2_err = max(r["max_abs_err"] for r in g2)
+    log(f"G2: {'bit for bit equal to' if bitwise else 'within 1e-6 relative of'}"
+        f" its plain version on {len(g2)} grids (max abs err {g2_err:.3e})")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    args = gate_grid(C, K, 1)
+    nargs = nf_grid(C, cap, K, 10)
+    g1 = {**time_gate(lambda: gate_kernel.gate_cuda(*args, 5.0, False),
+                      lambda: gate_kernel.gate_plain(*args, 5.0, False),
+                      "gate_kernel"),
+          **g1_bound(C, K, C * K, sms, clock), "max_abs_err": 0,
+          "real_rows": ga[6].shape[0]}
+    g2t = {**time_gate(lambda: gate_kernel.nf_floor_cuda(*nargs),
+                       lambda: gate_kernel.nf_floor_plain(*nargs),
+                       "nf_floor_kernel"),
+           **g2_bound(nargs, sms, clock), "max_abs_err": g2_err,
+           "bitwise": bitwise, "real_shape": list(na[0].shape)}
+    for name, t, shape in (("G1", g1, (C, K)), ("G2", g2t, (C, cap, K))):
+        log(f"{name} at {shape}: kernel {t['ms']:.4f} ms ({t['ms_from']}), "
+            f"a wrapper call {t['call_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.6f}, issue "
+            f"{t['ops_ms']:.6f}); a serial chain per channel, one thread "
+            f"a channel")
+    return g1, g2t
+
+
+def time_gate(call, plain, kernel: str) -> dict:
+    """A gate kernel's device time (profiler; CUDA events over back-to-
+    back calls when the profiler records no kernel), the wall time of a
+    wrapper call, and the plain version's time."""
+    call_ms = cuda_ms(call, 200)
+    ms = device_ms(call, 50, kernel)
+    return {"ms": call_ms if ms is None else ms,
+            "ms_from": "events" if ms is None else "profiler",
+            "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5)}
+
+
+def vector_signal():
+    """Three-burst vector (strong / marginal / near-cap) for 8 channels
+    at oversample 20: the samples, their rate, the channels and the
+    (name, payload, amplitude, offset) of each burst."""
     os_, C = 20, 8
     fs = SYMBOL_RATE * SPS * os_
     rng = np.random.default_rng(1)
@@ -221,11 +492,17 @@ def correctness_vector() -> dict:
     for b, (_, _, amp, _) in zip(bursts, vector):
         sig[pos:pos + b.size] += b * amp
         pos += b.size + gap
+    freqs = [int(CENTER - 25e3 * i) for i in range(C)]
+    return sig, int(fs), os_, freqs, vector
+
+
+def correctness_vector() -> dict:
+    """The three-burst vector through the port's pipeline on the card."""
+    sig, fs, os_, freqs, vector = vector_signal()
     # the first pass also pays one-time set-up (cuBLAS handles, the
     # allocator's pools); the second is timed
     for attempt in range(2):
-        pipe = VDL2Pipeline([int(CENTER - 25e3 * i) for i in range(C)],
-                            int(CENTER), int(fs), os_, device="cuda")
+        pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
         t0 = time.perf_counter()
         frames = pipe.feed(sig, eof=True)
         torch.cuda.synchronize()
@@ -241,6 +518,55 @@ def correctness_vector() -> dict:
         f"{msps:.3f} Msamples/s, realtime factor {msps / (fs / 1e6):.3f} "
         f"against {fs / 1e6} Msps")
     return {"msamples_per_s": msps, "realtime_factor": msps / (fs / 1e6)}
+
+
+def cli_on_card() -> dict:
+    """The correctness vector as an S16_LE file through the CLI in a
+    subprocess, on its default platform (the GPU): exit 0 and one JSON
+    record per burst on the burst's frequency.  A raw archive written in
+    the same run ties each JSON record to its frame bytes."""
+    sig, fs, os_, freqs, vector = vector_signal()
+    with tempfile.TemporaryDirectory() as tmp:
+        iq = os.path.join(tmp, "vector.s16")
+        out = os.path.join(tmp, "out.json")
+        raw = os.path.join(tmp, "out.frames")
+        inter = np.empty(2 * sig.size, np.float32)
+        inter[0::2], inter[1::2] = sig.real, sig.imag
+        (np.clip(inter, -1, 1) * 32767).astype("<i2").tofile(iq)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "dumpvdl2_tpu_torch", "--iq-file", iq,
+               "--sample-format", "S16_LE", "--oversample", str(os_),
+               "--centerfreq", str(int(CENTER)),
+               "--output", f"decoded:json:file:path={out}",
+               "--output", f"raw:binary:file:path={raw}"] + \
+            [str(f) for f in freqs]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=REPO, timeout=300)
+        dt = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"CLI exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        with open(out) as f:
+            recs = [json.loads(line)["vdl2"] for line in f if line.strip()]
+        with open(raw, "rb") as f:
+            frames = [(bytes(d.frame), d.metadata.freq)
+                      for d in rawframes.read_records(f)]
+    if len(recs) != len(frames):
+        raise AssertionError(f"CLI: {len(recs)} JSON records for "
+                             f"{len(frames)} frames")
+    for name, payload, _, off in vector:
+        want = (frame_with_fcs(payload), int(CENTER + off))
+        hits = [rec for rec, fr in zip(recs, frames)
+                if fr == want and rec["freq"] == want[1]]
+        if len(hits) != 1:
+            raise AssertionError(f"CLI: {len(hits)} JSON records for the "
+                                 f"{name} burst on {want[1]} Hz")
+    log(f"CLI on the card: exit 0, one JSON record per burst on its "
+        f"frequency ({len(recs)} records with the neighbour channels'; "
+        f"{dt:.2f} s with start-up)")
+    return {"records": len(recs), "seconds": dt}
 
 
 def wideband_scene(seed: int = 7):
@@ -268,8 +594,9 @@ def wideband_scene(seed: int = 7):
     return freqs, int(fs), os_, sig, want
 
 
-def run_wideband(freqs, fs, os_, sig, step_ms=None):
-    pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+def run_wideband(freqs, fs, os_, sig, step_ms=None, device_gate=None):
+    pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda",
+                        device_gate=device_gate)
     pipe.step_ms = step_ms
     frames = []
     for b in range(WIDEBAND_BLOCKS):
@@ -284,48 +611,79 @@ def run_wideband(freqs, fs, os_, sig, step_ms=None):
     return frames
 
 
-def wideband_main_path(scene) -> tuple[int, dict]:
+def reset_launches() -> None:
+    sync_kernel.launches = 0
+    for k in gate_kernel.launches:
+        gate_kernel.launches[k] = 0
+
+
+def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
+    """One mode of the wideband path: a warm-up, the counted and timed
+    run, and a synchronized breakdown run.  Returns the kernel launches
+    of the timed run, its frames and its numbers."""
     freqs, fs, os_, sig, want = scene
+    mode = "gated" if device_gate else "host-gated"
     # warm-up on a fresh pipeline: library handles, allocator pools
     run_wideband(freqs, fs, os_, sig[:, :WIDEBAND_BLOCK].contiguous()
-                 .repeat(1, WIDEBAND_BLOCKS))
+                 .repeat(1, WIDEBAND_BLOCKS), device_gate=device_gate)
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sync_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
-    frames = run_wideband(freqs, fs, os_, sig)
+    frames = run_wideband(freqs, fs, os_, sig, device_gate=device_gate)
     dt = time.perf_counter() - t0
-    k1_launches = sync_kernel.launches
+    launches = {"sync_error_metric": sync_kernel.launches,
+                **gate_kernel.launches}
     peak = torch.cuda.max_memory_allocated()
 
     got = {(bytes(f.frame), f.metadata.freq) for f in frames}
     missing = [w for w in want if w not in got]
     if missing:
-        raise AssertionError(f"wideband: {len(missing)} of {len(want)} "
-                             f"payloads missing, e.g. {missing[0]}")
-    if k1_launches < 1:
-        raise AssertionError("wideband main path never launched K1")
+        raise AssertionError(f"wideband {mode}: {len(missing)} of "
+                             f"{len(want)} payloads missing, e.g. "
+                             f"{missing[0]}")
     n = WIDEBAND_BLOCK * WIDEBAND_BLOCKS
     msps = n / dt / 1e6
-    log(f"wideband: {len(want)}/{len(want)} payloads decoded "
-        f"({len(frames)} frames), K1 launches on the main path: "
-        f"{k1_launches}")
-    log(f"wideband: {n} samples in {dt:.4f} s -> {msps:.3f} Msamples/s "
-        f"sustained, realtime factor {msps / (fs / 1e6):.3f} "
+    log(f"wideband {mode}: {len(want)}/{len(want)} payloads decoded "
+        f"({len(frames)} frames), kernel launches on this run: {launches}")
+    log(f"wideband {mode}: {n} samples in {dt:.4f} s -> {msps:.3f} "
+        f"Msamples/s sustained, realtime factor {msps / (fs / 1e6):.3f} "
         f"against {fs / 1e6} Msps")
-    log(f"wideband: peak device memory {peak / 2**30:.3f} GiB")
+    log(f"wideband {mode}: peak device memory {peak / 2**30:.3f} GiB")
 
     step_ms: dict = {}
-    run_wideband(freqs, fs, os_, sig, step_ms)
+    run_wideband(freqs, fs, os_, sig, step_ms, device_gate=device_gate)
     finish_ms = step_ms.pop("finish_once")
     per_block = {k: v / WIDEBAND_BLOCKS for k, v in step_ms.items()}
-    log("wideband per-block ms (synchronized breakdown run): " +
+    log(f"wideband {mode} per-block ms (synchronized breakdown run): " +
         ", ".join(f"{k} {v:.3f}" for k, v in per_block.items()) +
         f"; EOF finish() once {finish_ms:.3f}")
-    return k1_launches, {"msamples_per_s": msps,
-                         "realtime_factor": msps / (fs / 1e6),
-                         "peak_bytes": peak, "per_block_ms": per_block,
-                         "finish_ms": finish_ms}
+    return launches, frames, {"msamples_per_s": msps,
+                              "realtime_factor": msps / (fs / 1e6),
+                              "peak_bytes": peak, "per_block_ms": per_block,
+                              "finish_ms": finish_ms}
+
+
+def compare_modes(gated: list, host: list) -> float:
+    """The host-gated run's frames against the gated run's: the same
+    (bytes, freq) set, nf_pwr_dbfs within 2e-4 dB.  Returns the largest
+    noise-floor difference."""
+    def key(f):
+        return (bytes(f.frame), f.metadata.freq, f.metadata.idx)
+    g = {key(f): f for f in gated}
+    h = {key(f): f for f in host}
+    if set(g) != set(h):
+        raise AssertionError(f"gated and host-gated frames differ: "
+                             f"{len(set(g) ^ set(h))} of {len(g)}")
+    d_nf = max((abs(g[k].metadata.nf_pwr_dbfs - h[k].metadata.nf_pwr_dbfs)
+                for k in g), default=0.0)
+    if not d_nf < 2e-4:
+        raise AssertionError(f"gated and host-gated noise floors differ by "
+                             f"{d_nf:.3e} dB")
+    log(f"host-gated vs gated: {len(g)} frames equal, max |d nf_pwr_dbfs| "
+        f"{d_nf:.3e} dB (< 2e-4)")
+    return d_nf
 
 
 def main() -> int:
@@ -347,25 +705,37 @@ def main() -> int:
     scene = wideband_scene()
     checks.append(check_k1_real(*scene[:4]))
     k1_main = time_k1(256, 108844, seed=0)
+    g1, g2 = check_gates(scene)
 
     vec = correctness_vector()
-    k1_launches, wb = wideband_main_path(scene)
+    launches, gated_frames, wb = wideband_path(scene, device_gate=True)
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the gated wideband path never launched "
+                                 f"{name}")
+    _, host_frames, wb_host = wideband_path(scene, device_gate=False)
+    d_nf = compare_modes(gated_frames, host_frames)
+    cli = cli_on_card()
 
-    kernels_line = {"kernels": [{
-        "name": "sync_error_metric",
-        "route": "cuda",
-        "source": "dumpvdl2_tpu_torch/csrc/sync_metric.cu",
-        "replaces": "dumpvdl2_tpu/dsp/sync_pallas.py:117",
-        "launches": k1_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": k1_main["ms"],
-        "plain_ms": k1_main["plain_ms"],
-        "bound_ms": k1_main["bound_ms"],
-        "bound_by": k1_main["bound_by"],
-        "library_ms": None,
-    }]}
-    log(json.dumps({"wideband": wb, "vector": vec, "k1": k1_main,
-                    "card": card}))
+    def entry(name, source, replaces, t, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+
+    kernels_line = {"kernels": [
+        entry("sync_error_metric", "dumpvdl2_tpu_torch/csrc/sync_metric.cu",
+              "dumpvdl2_tpu/dsp/sync_pallas.py:117", k1_main,
+              max(c["max_abs_err"] for c in checks)),
+        entry("gate", "dumpvdl2_tpu_torch/csrc/gate.cu",
+              "dumpvdl2_tpu/core/nf_gate.py:133", g1, g1["max_abs_err"]),
+        entry("nf_floor", "dumpvdl2_tpu_torch/csrc/gate.cu",
+              "dumpvdl2_tpu/core/nf_gate.py:264", g2, g2["max_abs_err"]),
+    ]}
+    log(json.dumps({"wideband_gated": wb, "wideband_host_gated": wb_host,
+                    "modes_max_d_nf_db": d_nf, "vector": vec, "cli": cli,
+                    "k1": k1_main, "g1": g1, "g2": g2, "card": card}))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """PyTorch/CUDA port of the dumpvdl2_tpu VDL Mode 2 receiver.
 
-Runs the device-L2, host-gated receive path (wideband IQ -> channelizer
--> preamble sync -> batched L2/RS decode -> AVLC frames) on an NVIDIA
-GPU.  The preamble sync metric is a hand-written CUDA kernel
-(``csrc/sync_metric.cu``); every other device stage is plain PyTorch.
-The package imports nothing from ``dumpvdl2_tpu``: the host modules it
-needs are copies kept here.
+Runs the device-L2 receive path (wideband IQ -> channelizer -> preamble
+sync -> batched L2/RS decode -> device gating and noise floor -> AVLC
+frames -> protocol stack -> text/JSON/pp_acars/binary outputs) on an
+NVIDIA GPU, device-gated by default and host-gated on request, with the
+command line ``python -m dumpvdl2_tpu_torch``.  The preamble sync metric
+(``csrc/sync_metric.cu``) and the gate's two per-channel recurrences
+(``csrc/gate.cu``) are hand-written CUDA kernels; every other device
+stage is plain PyTorch.  The package imports nothing from
+``dumpvdl2_tpu``: the host modules it needs are copies kept here.
 
 The receiver's numerics need full float32 products: the channelizer's
 im2col matmul leaves its 2e-5 tolerance under TF32, so TF32 is turned

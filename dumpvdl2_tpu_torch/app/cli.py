@@ -1,0 +1,399 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+Port of ``dumpvdl2_tpu/app/cli.py``, with the same flag surface (the
+reference's, dumpvdl2.c:698-1232): frequencies as positional arguments,
+compositional ``--output`` specs, IQ file and raw-frames-file inputs,
+filtering, metadata-enrichment and metrics options.  The output of a
+run is byte for byte the JAX package's.
+
+What differs:
+
+* ``--platform`` names the torch device: ``gpu`` or ``cuda`` (the
+  default) or ``cpu``.  Without a GPU the CLI exits 1 with a "no CUDA
+  device" message unless it is given ``--platform cpu``.
+* ``--profile DIR`` writes a ``torch.profiler`` trace (Chrome trace
+  format) to ``DIR/trace.json``.
+* The SDR inputs (``--rtlsdr``, ``--mirisdr``, ``--sdrplay``,
+  ``--sdrplay3``, ``--soapysdr``) and ``--mesh`` are not ported yet and
+  exit 1 with a message saying so.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from .. import __version__
+from ..config import Config, parse_msg_filterspec
+from ..constants import CSC_FREQ, FILE_OVERSAMPLE, SPS, SYMBOL_RATE
+from ..io import iqfile, rawframes
+from ..io.outputs import OutputError, setup_output
+from .decoder import FrameDecoder
+from .stats import stats
+
+DEFAULT_OUTPUT = "decoded:text:file:path=-"
+PLATFORMS = {"gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
+_NOT_PORTED = ("rtlsdr", "mirisdr", "sdrplay", "sdrplay3", "soapysdr",
+               "mesh")
+
+
+def parse_frequency(s: str) -> int:
+    """Accept Hz with optional k/M/G suffix (dumpvdl2.c:648-695)."""
+    s = s.strip()
+    mult = 1.0
+    if s and s[-1] in "kMG":
+        mult = {"k": 1e3, "M": 1e6, "G": 1e9}[s[-1]]
+        s = s[:-1]
+    try:
+        return int(float(s) * mult)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid frequency: {s!r}")
+
+
+def _nonneg_int(s: str) -> int:
+    try:
+        v = int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"invalid integer: {s!r}")
+    if v < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0: {s!r}")
+    return v
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dumpvdl2_tpu_torch",
+        description="VDL Mode 2 message decoder and protocol analyzer "
+                    "(PyTorch/CUDA)")
+    p.add_argument("frequencies", nargs="*", type=parse_frequency,
+                   help="VDL2 channel frequencies (Hz; k/M/G suffixes "
+                        "allowed). Default: 136.975 MHz (CSC)")
+    p.add_argument("--version", action="version",
+                   version=f"dumpvdl2_tpu_torch {__version__}")
+
+    gi = p.add_argument_group("input options")
+    gi.add_argument("--iq-file", help="read IQ samples from file "
+                                      "('-' reads from stdin)")
+    gi.add_argument("--raw-frames-file",
+                    help="read raw AVLC frames (binary archive) from file")
+    gi.add_argument("--sample-format", choices=("U8", "S16_LE"),
+                    default="U8", help="IQ sample format (default: U8)")
+    gi.add_argument("--oversample", type=int, default=FILE_OVERSAMPLE,
+                    help="oversampling rate for recorded data "
+                         f"(default: {FILE_OVERSAMPLE}); sample rate = "
+                         f"{SYMBOL_RATE * SPS} * this value")
+    gi.add_argument("--centerfreq", type=parse_frequency, default=None,
+                    help="center frequency of the recorded IQ data (Hz)")
+    for flag in ("--rtlsdr", "--mirisdr", "--sdrplay", "--sdrplay3",
+                 "--soapysdr"):
+        gi.add_argument(flag, default=None, metavar="DEVICE",
+                        help="SDR input (not ported yet)")
+
+    go = p.add_argument_group("output options")
+    go.add_argument("--output", action="append", default=[],
+                    help="output specification "
+                         "<intype>:<format>:<type>:<k=v,...> "
+                         f"(default: {DEFAULT_OUTPUT})")
+    go.add_argument("--output-queue-hwm", type=int, default=1000,
+                    help="high-water mark on output queues "
+                         "(0 disables; default: 1000)")
+    go.add_argument("--utc", action="store_true",
+                    help="timestamps in UTC")
+    go.add_argument("--milliseconds", action="store_true",
+                    help="print milliseconds in timestamps")
+    go.add_argument("--raw-frames", action="store_true",
+                    help="print raw AVLC frames as hex")
+    go.add_argument("--dump-asn1", action="store_true",
+                    help="dump full ASN.1 structure of CM/CPDLC messages")
+    go.add_argument("--extended-header", action="store_true",
+                    help="print additional fields in message header")
+    go.add_argument("--decode-fragments", action="store_true",
+                    help="decode higher-level protocols in fragmented "
+                         "packets")
+    go.add_argument("--prettify-xml", action="store_true",
+                    help="pretty-print XML payloads in ACARS messages")
+    go.add_argument("--prettify-json", action="store_true",
+                    help="pretty-print JSON payloads in MIAM frames")
+    go.add_argument("--miam", choices=("auto", "off"), default="auto",
+                    help="MIAM CORE decoding: 'auto' uses this "
+                         "framework's reconstructed CORE codec, 'off' "
+                         "shows MIAM frame text raw (default: auto)")
+    go.add_argument("--station-id", default=None,
+                    help="station identifier added to messages")
+    go.add_argument("--msg-filter", default="all",
+                    help="message filter specification (comma list, "
+                         "'-' negates)")
+    go.add_argument("--max-ppm", type=float, default=0.0,
+                    help="reject bursts with higher frequency offset")
+    go.add_argument("--statsd", default=None,
+                    help="StatsD daemon address (host:port)")
+    go.add_argument("--gs-file", default=None,
+                    help="ground station info file (MultiPSK format)")
+    go.add_argument("--bs-db", default=None,
+                    help="Basestation aircraft database (SQLite)")
+    go.add_argument("--addrinfo", choices=("terse", "normal", "verbose"),
+                    default="normal",
+                    help="aircraft/ground station info verbosity")
+    go.add_argument("--debug", default=None, metavar="FILTER_SPEC",
+                    help="enable debug trace classes (comma list, '-' "
+                         "negates; classes: sdr demod demod_detail burst "
+                         "burst_detail proto proto_detail stats cache "
+                         "output misc all none)")
+
+    gt = p.add_argument_group("device options")
+    gt.add_argument("--block-size", type=int, default=1 << 20,
+                    help="IQ samples per processing block")
+    gt.add_argument("--platform", choices=sorted(PLATFORMS), default="gpu",
+                    help="torch device: gpu/cuda (default) or cpu")
+    gt.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run to "
+                         "DIR/trace.json (Chrome trace format)")
+    gt.add_argument("--mesh", default=None, metavar="CxT",
+                    help="sharded (channel x time) run (not ported yet)")
+    gt.add_argument("--decode-workers", type=_nonneg_int, default=0,
+                    metavar="N",
+                    help="fan the host protocol stack (L3/L4) out over "
+                         "N worker processes with reassembly-affinity "
+                         "sharding and in-order emission (0 = decode "
+                         "in-process, the reference's single-thread "
+                         "topology)")
+    return p
+
+
+def _maybe_print_spec_help(args: argparse.Namespace) -> bool:
+    """``--output help`` / ``--msg-filter help`` / ``--debug help``
+    print the available values and exit, like the reference
+    (dumpvdl2.c:254,631; output-common.c:189-220)."""
+    did = False
+    if args.msg_filter == "help":
+        from ..config import MSG_FILTERSPEC
+        print("<filter_spec> is a comma-separated list of message types"
+              " to display; prefix a type\nwith '-' to remove it from"
+              " the filter (last match wins).  Supported types:\n")
+        for name, (_mask, desc) in MSG_FILTERSPEC.items():
+            print(f"  {name:<20}{desc}")
+        did = True
+    if args.debug == "help":
+        from ..utils.debug import DEBUG_FILTERSPEC
+        print("<filter_spec> is a comma-separated list of debug message"
+              " classes (prefix with '-'\nto disable a class; last"
+              " match wins).  Supported classes:\n")
+        for name, (_bit, desc) in DEBUG_FILTERSPEC.items():
+            print(f"  {name:<16}{desc}")
+        did = True
+    if "help" in (args.output or []):
+        from ..io.formatters import FORMATTERS
+        from ..io.outputs import OUTPUTS
+        print("<output_specifier> is a ':'-separated specification of "
+              "the message source,\nformat and destination:\n\n"
+              "  <what_to_output>:<output_format>:"
+              "<output_type>:<output_parameters>\n")
+        print("Available message sources: decoded, raw\n")
+        print("Available output formats:")
+        for name, fd in FORMATTERS.items():
+            kinds = [k for k in ("decoded", "raw")
+                     if fd.supports_data_type(k)]
+            print(f"  {name:<12}(for {', '.join(kinds)} frames)")
+        print("\nAvailable output types:")
+        for name, cls in OUTPUTS.items():
+            fmts = ", ".join(cls.supported_formats)
+            print(f"  {name:<12}(formats: {fmts})")
+        did = True
+    return did
+
+
+def apply_config(args: argparse.Namespace) -> None:
+    from ..config import AddrInfoVerbosity
+    if args.debug:
+        from ..utils.debug import parse_debug_filterspec, set_debug_mask
+        try:
+            set_debug_mask(parse_debug_filterspec(args.debug))
+        except ValueError as exc:
+            raise SystemExit(f"error: {exc}")
+    Config.msg_filter = parse_msg_filterspec(args.msg_filter)
+    Config.max_ppm = args.max_ppm
+    Config.output_queue_hwm = args.output_queue_hwm
+    Config.station_id = args.station_id
+    Config.utc = args.utc
+    Config.milliseconds = args.milliseconds
+    Config.output_raw_frames = args.raw_frames
+    Config.dump_asn1 = args.dump_asn1
+    Config.extended_header = args.extended_header
+    Config.decode_fragments = args.decode_fragments
+    Config.prettify_xml = args.prettify_xml
+    Config.prettify_json = args.prettify_json
+    Config.miam = args.miam
+    Config.addrinfo_verbosity = AddrInfoVerbosity[args.addrinfo.upper()]
+
+
+_do_exit = 0
+
+
+def _sighandler(signum, frame) -> None:
+    """First signal: orderly drain; second: force quit
+    (reference dumpvdl2.c:69-92)."""
+    global _do_exit
+    _do_exit += 1
+    if _do_exit > 1:
+        os._exit(1)
+    print("got signal, exiting...", file=sys.stderr)
+
+
+def exit_requested() -> bool:
+    return _do_exit > 0
+
+
+def setup_signals() -> None:
+    import signal as _signal
+    for name in ("SIGINT", "SIGTERM", "SIGHUP", "SIGQUIT"):
+        sig = getattr(_signal, name, None)
+        if sig is None:
+            continue
+        try:
+            _signal.signal(sig, _sighandler)
+        except (ValueError, OSError):
+            pass     # non-main thread / unsupported platform
+
+
+def _start_profiler(device):
+    import torch.profiler as tp
+    acts = [tp.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(tp.ProfilerActivity.CUDA)
+    prof = tp.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if _maybe_print_spec_help(args):
+        return 0
+    for name in _NOT_PORTED:
+        if getattr(args, name) is not None:
+            print(f"error: --{name} is not ported yet to the PyTorch/CUDA "
+                  "package (use python -m dumpvdl2_tpu)", file=sys.stderr)
+            return 1
+    apply_config(args)
+    from ..utils.devices import resolve_device
+    try:
+        device = resolve_device(PLATFORMS[args.platform])
+    except RuntimeError as exc:
+        print(f"error: {exc} (or run with --platform cpu)",
+              file=sys.stderr)
+        return 1
+
+    fmtr_list = []
+    try:
+        for spec in (args.output or [DEFAULT_OUTPUT]):
+            setup_output(spec, fmtr_list)
+    except (OutputError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+
+    if args.gs_file:
+        from ..io import gs_data
+        gs_data.gs_data_import(args.gs_file)
+    if args.bs_db:
+        from ..io import ac_data
+        ac_data.ac_data_init(args.bs_db)
+    if args.statsd:
+        from ..io.statsd_client import StatsdClient
+        stats.attach_client(StatsdClient(args.statsd,
+                                         namespace="dumpvdl2_tpu",
+                                         station_id=args.station_id))
+
+    if args.decode_workers > 0:
+        from .parallel_decoder import ParallelFrameDecoder
+        decoder = ParallelFrameDecoder(fmtr_list, args.decode_workers,
+                                       gs_file=args.gs_file,
+                                       bs_db=args.bs_db)
+    else:
+        decoder = FrameDecoder(fmtr_list)
+    decoder.start_outputs()
+    setup_signals()
+
+    prof = _start_profiler(device) if args.profile else None
+    rc = 1
+    try:
+        if args.raw_frames_file:
+            # file inputs run unthrottled (dumpvdl2.c:1162,1167): HWM
+            # drop protection only makes sense against live sources
+            Config.output_queue_hwm = 0
+            rc = run_raw_frames(args, decoder)
+        elif args.iq_file:
+            Config.output_queue_hwm = 0
+            rc = run_iq_file(args, decoder, device)
+        else:
+            print("error: no input specified (--iq-file or "
+                  "--raw-frames-file)", file=sys.stderr)
+            return 1
+    except KeyboardInterrupt:
+        print("interrupted", file=sys.stderr)
+        return 130
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            path = os.path.join(args.profile, "trace.json")
+            prof.export_chrome_trace(path)
+            print(f"profiler trace written to {path}", file=sys.stderr)
+        decoder.shutdown()
+    if exit_requested():
+        return 130
+    return rc
+
+
+def _make_pipeline(args: argparse.Namespace, device):
+    from ..core.pipeline import VDL2Pipeline
+    freqs = args.frequencies or [CSC_FREQ]
+    sample_rate = SYMBOL_RATE * SPS * args.oversample
+    if args.centerfreq is not None:
+        centerfreq = args.centerfreq
+    elif len(freqs) == 1:
+        centerfreq = freqs[0]
+    else:
+        centerfreq = (min(freqs) + max(freqs)) // 2
+    return VDL2Pipeline(freqs=freqs, centerfreq=centerfreq,
+                        sample_rate=sample_rate, oversample=args.oversample,
+                        max_ppm=args.max_ppm, station_id=args.station_id,
+                        device=device)
+
+
+def run_iq_file(args: argparse.Namespace, decoder: FrameDecoder,
+                device) -> int:
+    pipe = _make_pipeline(args, device)
+    fh = sys.stdin.buffer if args.iq_file == "-" else open(args.iq_file, "rb")
+    try:
+        for blk in iqfile.iq_blocks(fh, args.sample_format,
+                                    bufsize=args.block_size):
+            if exit_requested():
+                break
+            decoder.process_all(pipe.feed(blk))
+        decoder.process_all(pipe.finish())
+    finally:
+        if fh is not sys.stdin.buffer:
+            fh.close()
+    return 0
+
+
+def run_raw_frames(args: argparse.Namespace, decoder: FrameDecoder) -> int:
+    fh = sys.stdin.buffer if args.raw_frames_file == "-" \
+        else open(args.raw_frames_file, "rb")
+    try:
+        if hasattr(decoder, "process_record"):
+            # parallel decoder: ship undecoded records, workers do the
+            # protobuf decode too
+            for body in rawframes.read_raw_bodies(fh):
+                if exit_requested():
+                    break
+                decoder.process_record(body)
+        else:
+            for decoded in rawframes.read_records(fh):
+                if exit_requested():
+                    break
+                decoder.process(decoded)
+    finally:
+        if fh is not sys.stdin.buffer:
+            fh.close()
+    return 0

@@ -1,0 +1,353 @@
+"""Device-side candidate gating + noise-floor tracker: one step a block.
+
+Port of ``dumpvdl2_tpu/core/nf_gate.py`` (single-device entry points;
+the mesh step ``gate_nf_mesh`` is not ported yet).  The per-channel
+burst state machine of ``VDL2Pipeline._process_candidates`` -- busy
+windows, deferral, ppm gate, and the magnitude EMA / noise-floor
+tracker with its busy-pause and deferral-hold semantics -- runs on the
+device, so the host drain carries per-candidate verdicts and
+noise-floor readings instead of the every-3rd-sample magnitude stream
+(reference analog: demod.c:229-285, decode.c:198-258).
+
+Semantics, as in the JAX package:
+
+* per block, the tracker consumes magnitude columns in index order
+  restricted to a computable mask -- the busy frontier, per-candidate
+  claimed windows (header reject: 9 symbols, accept: the burst length),
+  the hold drop-interval, and the deferral frontier;
+* a noise-floor update fires at every 1000th TRACKED column with the
+  EMA value at that column;
+* each accepted candidate reads the floor as of its sync point;
+* columns met while a deferral hold is pending are saved in a ring, not
+  tracked, and replayed (filtered to positions at/after the busy window
+  the resolution established) as a prefix of the stream when the hold
+  releases.  The ring holds RING columns per channel; columns beyond it
+  are dropped (a noise-floor-only effect).
+
+The two sequential recurrences run in kernels G1 (the gating decisions)
+and G2 (the per-1000 floor updates and readings), see
+core/gate_kernel.py.  The EMA over the tracked columns is an affine
+first-order recurrence; PyTorch has no public associative scan, so it
+is a log-depth doubling scan of (scale, offset) pairs.  Its float32
+results match JAX's tree order to about 1e-6 relative, not bit for bit.
+
+int32 hygiene: every carried index is relative to the current block's
+base; the caller passes the clamped inter-block delta and the rebase
+clamps at _FLOOR, so a long stream never overflows.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import MAG_LP, SPS
+from . import gate_kernel
+from .gate_scan import (V_ACCEPT, V_DEFER_DATA, V_EOF_SHORT, V_EOF_TRUNC,
+                        V_HDR_REJECT, V_L2_OVERFLOW, V_PPM_REJECT,
+                        ceil_syms)
+
+# Verdicts that resolve a candidate (host loop paths calling decided()).
+DECIDED_VERDICTS = (V_L2_OVERFLOW, V_EOF_SHORT, V_HDR_REJECT,
+                    V_EOF_TRUNC, V_PPM_REJECT, V_ACCEPT)
+# Verdicts whose host path advanced the tracker to the sync point and
+# claimed a busy window (hold drop-interval / replay-filter cases).
+ADVANCE_VERDICTS = (V_HDR_REJECT, V_ACCEPT)
+# Verdicts that bump demod.sync.good (header fitted the block).
+SYNC_GOOD_VERDICTS = frozenset((V_DEFER_DATA, V_HDR_REJECT, V_EOF_TRUNC,
+                                V_PPM_REJECT, V_ACCEPT))
+
+_FLOOR = -(1 << 30)        # "long in the past" clamp for rebased indices
+MAX_DELTA = 1 << 29        # caller clamps base deltas here
+RING = 32768               # held-column ring capacity per channel
+
+STATE_KEYS = ("busy_until", "next_det_min", "hold", "hold_active",
+              "mag_lp", "mag_nf", "nfcnt", "ring_pos", "ring_val", "ring_n")
+_STATE_DTYPES = {"hold_active": torch.bool, "mag_lp": torch.float32,
+                 "mag_nf": torch.float32, "ring_val": torch.float32}
+
+
+def init_state(C: int, ring: int = RING, device=None) -> dict:
+    """Fresh carried device state (mirrors ChannelState defaults)."""
+    def z(shape, dtype=torch.int32, fill=0):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    return {
+        "busy_until": z((C,)), "next_det_min": z((C,)), "hold": z((C,)),
+        "hold_active": z((C,), torch.bool, False),
+        "mag_lp": z((C,), torch.float32, 0.0),
+        "mag_nf": z((C,), torch.float32, 2.0),
+        "nfcnt": z((C,)),
+        "ring_pos": z((C, ring), fill=_FLOOR),
+        "ring_val": z((C, ring), torch.float32, 0.0),
+        "ring_n": z((C,)),
+    }
+
+
+def state_from_numpy(state: dict, device) -> dict:
+    """A carried state given as numpy arrays (e.g. the JAX pipeline's)
+    as tensors of the gate's dtypes on ``device``."""
+    return {k: torch.as_tensor(np.array(state[k]),
+                               device=device).to(_STATE_DTYPES.get(
+                                   k, torch.int32)).contiguous()
+            for k in STATE_KEYS}
+
+
+def _isin(v: torch.Tensor, codes) -> torch.Tensor:
+    m = v == codes[0]
+    for c in codes[1:]:
+        m = m | (v == c)
+    return m
+
+
+def _rebase(state: dict, delta: int) -> dict:
+    """Shift carried indices to the new block base (int32-safe)."""
+    st = dict(state)
+    for k in ("busy_until", "next_det_min", "hold", "ring_pos"):
+        st[k] = torch.clamp(state[k] - int(delta), min=_FLOOR)
+    return st
+
+
+def _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row, hdr_rows,
+          bits_rows, state, freqs, max_ppm: float, eof: bool):
+    """Kernel G1 (or its plain twin) on the block's candidate slots."""
+    i32 = torch.int32
+    return gate_kernel.gate(
+        count.to(i32).contiguous(), det_idx.to(i32).contiguous(),
+        sync_idx.to(i32).contiguous(), sym_valid.to(i32).contiguous(),
+        dphi.to(torch.float32).contiguous(), l2_row.to(i32).contiguous(),
+        hdr_rows.contiguous(), bits_rows.to(i32).contiguous(),
+        state["busy_until"].contiguous(), state["next_det_min"].contiguous(),
+        freqs, max_ppm, eof)
+
+
+def _decisions(verdicts, sync_idx, bits, state, deferred) -> dict:
+    """Hold bookkeeping shared by every entry point: released, persist,
+    drop_end (block-column low bound from the hold drop-interval),
+    ring_filter (replay position filter), and the new hold state."""
+    hold0, hold_act = state["hold"], state["hold_active"]
+    busy0 = state["busy_until"]
+    total_syms = ceil_syms(bits)
+    decided = _isin(verdicts, DECIDED_VERDICTS)
+    any_dec = decided.any(dim=1)
+    first = torch.argmax(decided.to(torch.int32), dim=1)
+    ar = torch.arange(verdicts.shape[0], device=verdicts.device)
+    fv = verdicts[ar, first]
+    fsync = sync_idx[ar, first]
+    f_adv = _isin(fv, ADVANCE_VERDICTS)
+    busy_after_first = torch.where(
+        fv == V_HDR_REJECT, fsync + 9 * SPS,
+        torch.where(fv == V_ACCEPT, fsync + total_syms[ar, first] * SPS,
+                    busy0)).to(torch.int32)
+
+    recovered = hold0 >= 0                    # block re-covered the hold
+    released = hold_act & (any_dec | ((deferred < 0) & recovered))
+    persist = hold_act & ~released
+    floor = torch.full_like(hold0, _FLOOR)
+    drop_end = torch.where(hold_act & any_dec & f_adv, fsync, floor)
+    ring_filter = torch.where(any_dec & f_adv, busy_after_first, busy0)
+    hold1_act = persist | (deferred >= 0)
+    hold1 = torch.where(
+        deferred >= 0,
+        torch.where(persist, torch.minimum(hold0, deferred), deferred),
+        hold0)
+    return {"released": released, "persist": persist,
+            "drop_end": drop_end, "ring_filter": ring_filter,
+            "hold": hold1, "hold_active": hold1_act}
+
+
+def affine_scan(scale: torch.Tensor, off: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along dim 1 of the affine maps x -> scale*x + off
+    (left to right): ``(S, O)`` with y_i = S_i * y_{-1} + O_i.  A
+    doubling scan, ceil(log2 N) steps."""
+    S, O = scale, off
+    d = 1
+    while d < S.shape[1]:
+        O = torch.cat([O[:, :d], O[:, :-d] * S[:, d:] + O[:, d:]], dim=1)
+        S = torch.cat([S[:, :d], S[:, :-d] * S[:, d:]], dim=1)
+        d *= 2
+    return S, O
+
+
+def _nf_track(verdicts, sync_idx, bits, mags, col_pos, state, dec,
+              deferred, end_rel: int):
+    """Masked EMA + noise-floor crossings for one block.
+
+    The processed column stream is [ring (hold-release replay)] ++
+    [this block's columns]; ``col_pos`` (W,) int32 are the rebased
+    decimated indices of the block's columns, strictly increasing.
+    Returns (nf_read (C, K), new tracker and ring state).
+    """
+    C, K = verdicts.shape
+    W = mags.shape[1]
+    dev = verdicts.device
+    i32 = torch.int32
+    busy0 = state["busy_until"]
+    mag_lp0, mag_nf0, nfcnt0 = (state["mag_lp"], state["mag_nf"],
+                                state["nfcnt"])
+    ring_pos, ring_val, ring_n = (state["ring_pos"], state["ring_val"],
+                                  state["ring_n"])
+    R = ring_pos.shape[1]
+    floor = torch.full_like(busy0, _FLOOR)
+
+    # --- block-column mask --------------------------------------------
+    total_syms = ceil_syms(bits)
+    is_rej = verdicts == V_HDR_REJECT
+    win = is_rej | (verdicts == V_ACCEPT)
+    we = sync_idx + torch.where(is_rej, 9 * SPS, total_syms * SPS).to(i32)
+    a = torch.searchsorted(col_pos, sync_idx.reshape(-1).contiguous(),
+                           out_int32=True).reshape(C, K)
+    b = torch.searchsorted(col_pos, we.reshape(-1).contiguous(),
+                           out_int32=True).reshape(C, K)
+    rows = torch.arange(C, device=dev)[:, None].expand(C, K)
+    dlt = torch.zeros((C, W + 1), dtype=i32, device=dev)
+    dlt.index_put_((rows, a.long()), win.to(i32), accumulate=True)
+    dlt.index_put_((rows, b.long()), -win.to(i32), accumulate=True)
+    inwin = torch.cumsum(dlt, dim=1, dtype=i32)[:, :W] > 0
+
+    low = torch.maximum(busy0, dec["drop_end"])
+    # while a hold persists, block columns are saved (ring), not tracked
+    f_track = torch.where(dec["persist"], floor,
+                          torch.where(deferred >= 0, deferred,
+                                      torch.full_like(busy0, end_rel)))
+    track_blk = (col_pos[None, :] >= low[:, None]) \
+        & (col_pos[None, :] < f_track[:, None]) & ~inwin
+
+    # --- ring replay (prefix of the stream) ---------------------------
+    slot = torch.arange(R, dtype=i32, device=dev)[None, :]
+    track_ring = (slot < ring_n[:, None]) & dec["released"][:, None] \
+        & (ring_pos >= dec["ring_filter"][:, None])
+
+    mags_all = torch.cat([ring_val, mags], dim=1)
+    track = torch.cat([track_ring, track_blk], dim=1)
+
+    # --- EMA over tracked columns (affine doubling scan) --------------
+    # float32 constants as exact Python floats: no host-to-device copy
+    scale = torch.where(track, float(np.float32(MAG_LP)), 1.0)
+    off = torch.where(track, mags_all * float(np.float32(1.0 - MAG_LP)), 0.0)
+    S, O = affine_scan(scale, off)
+    y = S * mag_lp0[:, None] + O
+    del scale, off, S, O
+    s_cnt = torch.cumsum(track, dim=1, dtype=i32)
+    total_n = s_cnt[:, -1]
+
+    # --- per-1000 noise-floor crossings (kernel G2) -------------------
+    cap = (R + W) // 1000 + 1
+    steps = torch.arange(1, cap + 1, dtype=i32, device=dev)[None, :]
+    targets = (steps * 1000 - nfcnt0[:, None]).contiguous()
+    jc = torch.searchsorted(s_cnt, targets, out_int32=True)
+    ncross = torch.div(nfcnt0 + total_n, 1000, rounding_mode="floor")
+    valid_c = steps <= ncross[:, None]
+    y_cross = torch.take_along_dim(y, jc.clamp(0, R + W - 1).long(), dim=1)
+    bound = R + torch.searchsorted(col_pos,
+                                   sync_idx.reshape(-1).contiguous(),
+                                   out_int32=True).reshape(C, K)
+    mag_nf1, nf_read = gate_kernel.nf_floor(
+        y_cross.contiguous(), valid_c.contiguous(), jc.contiguous(),
+        bound.contiguous(), mag_nf0.contiguous())
+
+    # --- ring update ---------------------------------------------------
+    # appended while the hold persists: columns past the busy frontier,
+    # up to the (new) deferral bound.  They form an interval [j_lo,
+    # j_lo + n_app) of block columns, so ring slot s holds column
+    # j_lo + (s - base_n): one gather from the block padded by R on
+    # both sides.
+    f_app = torch.where(deferred >= 0, deferred,
+                        torch.full_like(busy0, end_rel))
+    app = dec["persist"][:, None] & (col_pos[None, :] >= busy0[:, None]) \
+        & (col_pos[None, :] < f_app[:, None])
+    base_n = torch.where(dec["released"], torch.zeros_like(ring_n), ring_n)
+    keep_old = ~dec["released"][:, None] & (slot < ring_n[:, None])
+    n_app = app.sum(dim=1).to(i32)
+    pos1 = torch.where(keep_old, ring_pos, torch.full_like(ring_pos, _FLOOR))
+    val1 = torch.where(keep_old, ring_val, torch.zeros_like(ring_val))
+    if W > 0:
+        j_lo = torch.argmax(app.to(i32), dim=1).to(i32)
+        is_app = (slot >= base_n[:, None]) \
+            & (slot < (base_n + n_app)[:, None])
+        start = R + j_lo - base_n                     # in [0, R + W - 1]
+        idx = (start[:, None].long()
+               + torch.arange(R, device=dev)[None, :])
+        val_pad = torch.cat([torch.zeros((C, R), dtype=torch.float32,
+                                         device=dev), mags,
+                             torch.zeros((C, R), dtype=torch.float32,
+                                         device=dev)], dim=1)
+        pos_pad = torch.cat([torch.full((R,), _FLOOR, dtype=i32, device=dev),
+                             col_pos,
+                             torch.full((R,), _FLOOR, dtype=i32, device=dev)])
+        pos1 = torch.where(is_app, pos_pad[idx], pos1)
+        val1 = torch.where(is_app, torch.take_along_dim(val_pad, idx, dim=1),
+                           val1)
+    ring_n1 = torch.clamp(base_n + n_app, max=R).to(i32)
+
+    new = {"mag_lp": y[:, -1].contiguous(), "mag_nf": mag_nf1,
+           "nfcnt": torch.remainder(nfcnt0 + total_n, 1000).to(i32),
+           "ring_pos": pos1, "ring_val": val1, "ring_n": ring_n1}
+    return nf_read, new
+
+
+def mag(pwr3: torch.Tensor) -> torch.Tensor:
+    """Device magnitude with the same f16 rounding the host-gated drain
+    applies (core/pipeline.mag16), so both modes track identical
+    inputs."""
+    return torch.sqrt(pwr3).to(torch.float16).to(torch.float32)
+
+
+def _finish_state(g, dec, nf_new) -> dict:
+    return {"busy_until": g["busy_until"],
+            "next_det_min": g["next_det_min"],
+            "hold": dec["hold"], "hold_active": dec["hold_active"],
+            **nf_new}
+
+
+def _out(g, nf_read, state) -> dict:
+    return {"verdicts": g["verdicts"], "nf_read": nf_read,
+            "deferred_at": g["deferred_at"],
+            **{k: state[k] for k in (
+                "busy_until", "next_det_min", "hold", "hold_active",
+                "mag_lp", "mag_nf", "nfcnt", "ring_n")}}
+
+
+def gate_nf_single(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
+                   hdr_rows, bits_rows, pwr3, nf_base_rel: int, delta: int,
+                   state: dict, freqs, max_ppm: float):
+    """Full device gate + NF step for the single-device pipeline.
+
+    All index args/state are decimated-sample indices relative to the
+    current block's base; ``delta`` rebases the carried state from the
+    previous base, ``pwr3`` (C, W) holds the powers of the block's
+    fresh samples nf_base_rel, nf_base_rel + 3, ...  Returns (out,
+    new_state) where ``out`` is what the host drain fetches.
+    """
+    st = _rebase(state, delta)
+    g, bits = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
+                    hdr_rows, bits_rows, st, freqs, max_ppm, eof=False)
+    W = pwr3.shape[1]
+    col_pos = int(nf_base_rel) + 3 * torch.arange(W, dtype=torch.int32,
+                                                  device=pwr3.device)
+    dec = _decisions(g["verdicts"], sync_idx, bits, st, g["deferred_at"])
+    nf_read, nf_new = _nf_track(g["verdicts"], sync_idx, bits, mag(pwr3),
+                                col_pos, st, dec, g["deferred_at"],
+                                int(nf_base_rel) + 3 * W)
+    new_state = _finish_state(g, dec, nf_new)
+    return _out(g, nf_read, new_state), new_state
+
+
+def gate_only(count, det_idx, sync_idx, sym_valid, dphi, l2_row, hdr_rows,
+              bits_rows, delta: int, state: dict, freqs, max_ppm: float,
+              eof: bool = True):
+    """Gate without fresh magnitude columns (the EOF flush: finish()
+    re-demodulates the carried halo; a resolution can still release the
+    hold and replay the ring)."""
+    st = _rebase(state, delta)
+    g, bits = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
+                    hdr_rows, bits_rows, st, freqs, max_ppm, eof=eof)
+    C = det_idx.shape[0]
+    dev = det_idx.device
+    dec = _decisions(g["verdicts"], sync_idx, bits, st, g["deferred_at"])
+    nf_read, nf_new = _nf_track(
+        g["verdicts"], sync_idx, bits,
+        torch.zeros((C, 0), dtype=torch.float32, device=dev),
+        torch.zeros((0,), dtype=torch.int32, device=dev), st, dec,
+        g["deferred_at"], _FLOOR)
+    new_state = _finish_state(g, dec, nf_new)
+    return _out(g, nf_read, new_state), new_state

@@ -1,22 +1,30 @@
 """Streaming receive pipeline: raw IQ blocks in, decoded frames out.
 
-Port of ``dumpvdl2_tpu/core/pipeline.py`` in its device-L2, host-gated
-mode (the JAX package's ``DUMPVDL2_TPU_L2=1 DUMPVDL2_TPU_GATE=0``):
+Port of ``dumpvdl2_tpu/core/pipeline.py`` with device L2 (the JAX
+package's ``DUMPVDL2_TPU_L2=1``), in both of its gating modes:
 
 * each ``feed()`` channelizes one wideband block for all channels,
   detects preamble candidates (kernel K1 on CUDA), compacts the
   candidate slots, slices their symbol windows and runs the batched L2
   decode, all on the device (``process_block_detect`` + ``l2_sliced``),
+* device gating (the default, as in the JAX package): the gate step
+  (core/nf_gate.py, kernels G1 and G2 on CUDA) decides every candidate
+  and tracks the noise floor on the device; the host only builds the
+  frames of the accepted bursts (``_process_verdicts``).  With
+  ``device_gate=False`` (``DUMPVDL2_TPU_GATE=0``) the block's
+  every-3rd-sample magnitudes come to the host instead, and the host
+  runs the candidate loop and the noise-floor tracker
+  (``_process_candidates``),
 * a decimated-sample halo is carried between blocks so bursts that
   straddle a block boundary are re-detected and decoded once fully
   contained,
 * the results come back in ONE device->host copy per block, in a
-  background thread, and the host runs the candidate loop, the noise
-  floor tracker and HDLC unstuff/CRC two blocks behind the device.
+  background thread, and the host works two blocks behind the device.
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -26,6 +34,7 @@ import numpy as np
 import scipy.signal
 import torch
 
+from ..app.stats import stats as _stats
 from ..burst import BurstResult, _result_from_batch
 from ..constants import (HEADER_LEN, MAG_LP, NF_LP, SPS, SYMBOL_RATE,
                          SYNC_THRESHOLD)
@@ -37,7 +46,10 @@ from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
                            debug_print_buf_hex)
 from ..utils.devices import resolve_device
 from ..utils.fetch import coalesced_get
+from . import nf_gate
 from .device import process_block_detect
+from .gate_scan import (V_DEFER_DATA, V_EMPTY, V_EOF_TRUNC, V_HDR_REJECT,
+                        V_L2_OVERFLOW, V_PPM_REJECT, V_SKIP, V_UNPROCESSED)
 from .metadata import DecodedFrame, MsgMetadata
 
 # Longest possible burst in decimated samples (header + max payload):
@@ -160,29 +172,43 @@ class ChannelState:
     stats: dict = field(default_factory=dict)
 
     def bump(self, counter: str, n: int = 1) -> None:
-        """Count with the reference's per-channel metric names
-        (statsd.c:34-63)."""
+        """Count locally AND export to the global sink with the
+        reference's per-channel metric names (statsd.c:34-63), so
+        --statsd emits the demod/decoder funnel."""
         self.stats[counter] = self.stats.get(counter, 0) + n
+        _stats.increment_per_channel(self.freq, counter, n)
+
+
+def resolve_device_gate(device_gate: bool | None = None) -> bool:
+    """Whether candidate gating and the noise floor run on the device:
+    ``device_gate`` if given, else on unless DUMPVDL2_TPU_GATE is "0"
+    (the JAX package's rule)."""
+    if device_gate is not None:
+        return bool(device_gate)
+    return os.environ.get("DUMPVDL2_TPU_GATE", "auto") != "0"
 
 
 class VDL2Pipeline:
-    """Device-L2, host-gated receiver for ``freqs`` inside one wideband
-    stream at ``sample_rate`` (an ``oversample`` multiple of 105 kHz).
+    """Device-L2 receiver for ``freqs`` inside one wideband stream at
+    ``sample_rate`` (an ``oversample`` multiple of 105 kHz).
 
     Runs on ``device`` ("cuda" by default); raises when no GPU is
-    present unless the caller asks for the CPU.  ``step_ms``, when set
-    to a dict, makes each block synchronize after its detect and L2
-    steps and accumulate their wall milliseconds (plus the host's
-    fetch-and-decode time) there: a breakdown for measurement, at the
-    cost of the overlap.
+    present unless the caller asks for the CPU.  ``device_gate``
+    selects the gating mode (see :func:`resolve_device_gate`).
+    ``step_ms``, when set to a dict, makes each block synchronize after
+    its detect, L2 and (device-gated) gate steps and accumulate their
+    wall milliseconds (plus the host's fetch-and-decode time) there: a
+    breakdown for measurement, at the cost of the overlap.
     """
 
     def __init__(self, freqs: list[int], centerfreq: int, sample_rate: int,
                  oversample: int, max_ppm: float = 0.0,
                  station_id: str | None = None,
                  max_candidates: int = 64,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 device_gate: bool | None = None):
         self.device = resolve_device(device)
+        self.use_device_gate = resolve_device_gate(device_gate)
         self.freqs = list(freqs)
         self.centerfreq = int(centerfreq)
         self.sample_rate = int(sample_rate)
@@ -205,6 +231,13 @@ class VDL2Pipeline:
         self.hist_base = 0        # global decimated index of hist[:, 0]
         self.channels = [ChannelState(freq=f) for f in freqs]
         self._residual = np.zeros(0, dtype=np.complex64)
+        # device gate: carried state (core/nf_gate.py), the block base
+        # it is relative to, and the (C, K) identity slot -> L2 row map
+        self._gate_state: dict | None = None
+        self._gate_base = 0
+        self._gate_rows_cache = None
+        self._freqs_f32 = torch.as_tensor(np.asarray(self.freqs, np.float32),
+                                          device=self.device)
         # Two-deep host pipeline: block N's device work is launched
         # before older blocks' results are consumed; transfers run in a
         # background thread.
@@ -409,30 +442,36 @@ class VDL2Pipeline:
                 ch.busy_until = sp_g + total_syms * SPS
                 ch.next_det_min = det_g + 1
                 decided(ch, det_g)
-                debug_print(D_BURST,
-                            "ch %d: burst ok=%s reason=%s datalen=%d "
-                            "blocks=%d fec_corr=%d frames=%d",
-                            c, res.ok, res.reason or "-", res.datalen,
-                            res.blocks_processed, res.num_fec_corrections,
-                            len(res.frames))
-                for fr in res.frames:
-                    debug_print_buf_hex(D_BURST_DETAIL, fr,
-                                        "unstuffed frame:")
-                frame_pwr = float(l2_np["frame_pwr"][l2_index(c, k)])
-                self._count_burst(ch, res, frame_pwr)
-                for i, frame in enumerate(res.frames):
-                    md = MsgMetadata(
-                        station_id=self.station_id, freq=ch.freq,
-                        frame_pwr_dbfs=10.0 * math.log10(max(frame_pwr, 1e-30)),
-                        nf_pwr_dbfs=20.0 * math.log10(ch.mag_nf + 0.001),
-                        ppm_error=ppm,
-                        burst_timestamp=time.time(),
-                        datalen_octets=res.datalen_octets,
-                        synd_weight=res.synd_weight,
-                        num_fec_corrections=res.num_fec_corrections,
-                        idx=i)
-                    out.append(DecodedFrame(metadata=md, frame=frame))
+                self._emit(out, ch, c, res,
+                           float(l2_np["frame_pwr"][l2_index(c, k)]),
+                           ch.mag_nf, ppm)
         return out
+
+    def _emit(self, out: list, ch: ChannelState, c: int, res: BurstResult,
+              frame_pwr: float, nf: float, ppm: float) -> None:
+        """Count an accepted burst and append its frames to ``out``,
+        with the noise floor ``nf`` it read."""
+        debug_print(D_BURST,
+                    "ch %d: burst ok=%s reason=%s datalen=%d "
+                    "blocks=%d fec_corr=%d frames=%d",
+                    c, res.ok, res.reason or "-", res.datalen,
+                    res.blocks_processed, res.num_fec_corrections,
+                    len(res.frames))
+        for fr in res.frames:
+            debug_print_buf_hex(D_BURST_DETAIL, fr, "unstuffed frame:")
+        self._count_burst(ch, res, frame_pwr)
+        for i, frame in enumerate(res.frames):
+            md = MsgMetadata(
+                station_id=self.station_id, freq=ch.freq,
+                frame_pwr_dbfs=10.0 * math.log10(max(frame_pwr, 1e-30)),
+                nf_pwr_dbfs=20.0 * math.log10(nf + 0.001),
+                ppm_error=ppm,
+                burst_timestamp=time.time(),
+                datalen_octets=res.datalen_octets,
+                synd_weight=res.synd_weight,
+                num_fec_corrections=res.num_fec_corrections,
+                idx=i)
+            out.append(DecodedFrame(metadata=md, frame=frame))
 
     def _count_burst(self, ch: ChannelState, res: BurstResult,
                      frame_pwr: float = 0.0) -> None:
@@ -449,6 +488,106 @@ class VDL2Pipeline:
                 ch.bump("decoder.msg.good_loud")
         elif res.reason:
             ch.bump(_error_counter(res.reason))
+
+    # ------------------------------------------------------- device gating
+    def _gate_rows(self, l2_map):
+        """Slot -> L2 batch row map as a (C, K) int32 tensor."""
+        if l2_map is not None:
+            return l2_map
+        if self._gate_rows_cache is None:
+            C, K = len(self.channels), self.max_candidates
+            self._gate_rows_cache = torch.arange(
+                C * K, dtype=torch.int32, device=self.device).reshape(C, K)
+        return self._gate_rows_cache
+
+    def _gate_delta(self, base: int) -> int:
+        d = base - self._gate_base
+        self._gate_base = base
+        return int(np.clip(d, -nf_gate.MAX_DELTA, nf_gate.MAX_DELTA))
+
+    def _gate_state_now(self) -> dict:
+        if self._gate_state is None:
+            self._gate_state = nf_gate.init_state(len(self.channels),
+                                                  device=self.device)
+        return self._gate_state
+
+    def _dispatch_gate(self, dets, l2, l2_map, pwr3, base: int, H: int):
+        """Launch the device gate + NF step for one block (its state
+        chains on the device; see core/nf_gate.py)."""
+        out, self._gate_state = nf_gate.gate_nf_single(
+            dets.count, dets.det_idx, dets.sync_idx, dets.sym_valid,
+            dets.dphi, self._gate_rows(l2_map), l2["hdr_ok"],
+            l2["bits_consumed"], pwr3, H, self._gate_delta(base),
+            self._gate_state_now(), self._freqs_f32, self.max_ppm)
+        return out
+
+    def _process_verdicts(self, gout, fetched, l2_np, l2_map_np,
+                          base: int) -> list[DecodedFrame]:
+        """Device-gated twin of _process_candidates: the decisions were
+        made on the device; the host mirrors the carried state, bumps
+        the reference counters, and assembles frames for accepts."""
+        out: list[DecodedFrame] = []
+        v = gout["verdicts"]
+        nf_read = gout["nf_read"]
+        count, det_idx, sync_idx, dphi, pherr, sym_valid = fetched
+        self._last_proc_base = base
+        deferred = gout["deferred_at"]
+        mins = deferred[deferred >= 0]
+        self.last_deferred_min = base + int(mins.min()) if mins.size \
+            else None
+        K = det_idx.shape[1]
+
+        def l2_row(c: int, k: int) -> int:
+            return int(l2_map_np[c, k]) if l2_map_np is not None \
+                else c * self.max_candidates + k
+
+        for c, ch in enumerate(self.channels):
+            if int(count[c]) > K:
+                ch.bump("demod.sync.overflow")
+            # mirror the carried device state (introspection and
+            # handover; the decisions never consult these mirrors)
+            ch.busy_until = base + int(gout["busy_until"][c])
+            ch.next_det_min = base + int(gout["next_det_min"][c])
+            ch.mag_nf = float(gout["mag_nf"][c])
+            ch.mag_lp = float(gout["mag_lp"][c])
+            ch.nfcnt = int(gout["nfcnt"][c])
+            ch.nf_hold = base + int(gout["hold"][c]) \
+                if bool(gout["hold_active"][c]) else None
+            ch.deferred_at = None
+            vc = v[c]
+            for k in np.nonzero((vc != V_EMPTY) & (vc != V_SKIP)
+                                & (vc != V_UNPROCESSED))[0]:
+                verdict = int(vc[k])
+                sp_g = base + int(sync_idx[c, k])
+                if verdict == V_L2_OVERFLOW:
+                    ch.bump("demod.sync.overflow")
+                    continue
+                if verdict not in nf_gate.SYNC_GOOD_VERDICTS:
+                    continue          # V_DEFER / V_EOF_SHORT: pending
+                ch.bump("demod.sync.good")
+                debug_print(D_DEMOD,
+                            "ch %d (%d Hz): sync at %d err=%.3f dphi=%.5f",
+                            c, ch.freq, sp_g, float(pherr[c, k]),
+                            float(dphi[c, k]))
+                if verdict in (V_DEFER_DATA, V_PPM_REJECT):
+                    continue
+                if verdict == V_HDR_REJECT:
+                    res = _result_from_batch(l2_np, l2_row(c, k))
+                    debug_print(D_BURST, "ch %d: header rejected (%s)",
+                                c, res.reason)
+                    ch.bump(_error_counter(res.reason))
+                    continue
+                if verdict == V_EOF_TRUNC:
+                    ch.bump("decoder.errors.eof_truncated")
+                    continue
+                # V_ACCEPT
+                row = l2_row(c, k)
+                res = _result_from_batch(l2_np, row)
+                ppm = SYMBOL_RATE * float(dphi[c, k]) \
+                    / (2.0 * math.pi * ch.freq) * 1e6
+                self._emit(out, ch, c, res, float(l2_np["frame_pwr"][row]),
+                           float(nf_read[c, k]), ppm)
+        return out
 
     # ------------------------------------------------------------------ feed
     def _sync_time(self, key: str, t0: float) -> float:
@@ -513,12 +652,21 @@ class VDL2Pipeline:
         # only references, so each block's buffers are freed as soon as
         # its transfer completes.  The fetch thread issues its copies
         # on the same (default) stream, after this block's work.
-        fut = self._submit_fetch(
-            (mag16(pwr3), self._candidate_fields(dets), l2, l2_map))
-        self._pending_q.append((fut, base, base + H))
+        if self.use_device_gate:
+            # the drain fetches verdicts and per-accept noise-floor
+            # readings instead of the magnitude stream
+            gout = self._dispatch_gate(dets, l2, l2_map, pwr3, base, H)
+            if self.step_ms is not None:
+                t0 = self._sync_time("gate", t0)
+            fut = self._submit_fetch(
+                (gout, self._candidate_fields(dets), l2, l2_map))
+        else:
+            fut = self._submit_fetch(
+                (mag16(pwr3), self._candidate_fields(dets), l2, l2_map))
+        self._pending_q.append((self.use_device_gate, fut, base, base + H))
         frames = []
         while len(self._pending_q) > 2 \
-                or (self._pending_q and self._pending_q[0][0].done()):
+                or (self._pending_q and self._pending_q[0][1].done()):
             frames.extend(self._drain_oldest())
         if self.step_ms is not None:
             frames.extend(self._drain_pending())
@@ -537,7 +685,11 @@ class VDL2Pipeline:
         """Host-process the oldest in-flight block, if any."""
         if not self._pending_q:
             return []
-        fut, base, nf_base = self._pending_q.popleft()
+        gated, fut, base, nf_base = self._pending_q.popleft()
+        if gated:
+            gout, fetched, l2_np, l2_map_np = fut.result()
+            return self._process_verdicts(gout, fetched, l2_np, l2_map_np,
+                                          base)
         mags_np, fetched, l2_np, l2_map_np = fut.result()
         self._stash_noise_block(mags_np, nf_base)
         frames = self._process_candidates(base, False, fetched, l2_np,
@@ -568,6 +720,19 @@ class VDL2Pipeline:
                                          cands.count, self.max_candidates)
         if l2_map is not None:
             l2_map = l2_map.reshape(len(self.channels), self.max_candidates)
+        if self.use_device_gate:
+            # EOF through the device gate: no fresh magnitude columns
+            gout, self._gate_state = nf_gate.gate_only(
+                cands.count, cands.det_idx, cands.sync_idx,
+                cands.sym_valid, cands.dphi, self._gate_rows(l2_map),
+                l2["hdr_ok"], l2["bits_consumed"],
+                self._gate_delta(self.hist_base), self._gate_state_now(),
+                self._freqs_f32, self.max_ppm, eof=True)
+            gout_np, fetched, l2_np, l2_map_np = coalesced_get(
+                (gout, self._candidate_fields(cands), l2, l2_map))
+            frames.extend(self._process_verdicts(
+                gout_np, fetched, l2_np, l2_map_np, self.hist_base))
+            return frames
         fetched, l2_np, l2_map_np = coalesced_get(
             (self._candidate_fields(cands), l2, l2_map))
         frames.extend(self._process_candidates(
@@ -584,7 +749,9 @@ def load_state(pipe: VDL2Pipeline, state: dict) -> None:
     fed), and ``channels``: one dict per channel with ``busy_until``,
     ``next_det_min``, ``mag_lp``, ``mag_nf``, ``nfcnt``, ``nf_hold``
     (int or None) and ``nf_saved`` (list of (indices, magnitudes)).
-    The pipeline must have no block in flight.
+    A stream that ran device-gated also carries ``gate_state`` (the ten
+    arrays of core/nf_gate.init_state, relative to ``gate_base``) and
+    ``gate_base``.  The pipeline must have no block in flight.
     """
     if pipe._pending_q:
         raise RuntimeError("load_state needs a drained pipeline")
@@ -612,3 +779,7 @@ def load_state(pipe: VDL2Pipeline, state: dict) -> None:
         ch.nf_saved = [(np.asarray(i), np.asarray(m, np.float64))
                        for i, m in st["nf_saved"]]
         ch.deferred_at = None
+    if state.get("gate_state") is not None:
+        pipe._gate_state = nf_gate.state_from_numpy(state["gate_state"],
+                                                    pipe.device)
+        pipe._gate_base = int(state["gate_base"])

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: kernel K1 and the CUDA paths.
+"""PyTorch port on the card: kernels K1, G1 and G2 and the CUDA paths.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so on the GPU machine it runs without
@@ -7,10 +7,14 @@ the JAX-side conftest:
     python -m pytest -o addopts= -p no:cacheprovider --noconftest \
         -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.pipeline import VDL2Pipeline
 from dumpvdl2_tpu_torch.dsp import sync_kernel
 from dumpvdl2_tpu_torch.sim import frame_with_fcs, synthesize_iq_raw
@@ -68,6 +72,88 @@ def test_coalesced_get_round_trip(cuda):
     assert out[0]["none"] is None and out[0]["ok"].dtype == np.bool_
     np.testing.assert_array_equal(out[0]["x"], tree[0]["x"].cpu().numpy())
     np.testing.assert_array_equal(out[1], tree[1].cpu().numpy())
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its G1/G2 input grids and checks."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("C,K,kw", [
+    (256, 64, {}), (1, 1, {}), (300, 8, {"B": 1}), (129, 64, {"no_rows": True}),
+    (256, 64, {"base": 2**31 - 900}), (64, 64, {"negative_bits": True})])
+@pytest.mark.parametrize("eof,max_ppm", [(False, 5.0), (True, 0.0)])
+def test_g1_matches_plain(cuda, C, K, kw, eof, max_ppm):
+    smoke = _chip_smoke()
+    args = smoke.gate_grid(C, K, C * 7 + K, **kw)
+    before = gate_kernel.launches["gate"]
+    gate_kernel.gate(*args, max_ppm, eof)
+    assert gate_kernel.launches["gate"] == before + 1
+    smoke.compare_g1(args, max_ppm, eof, f"{(C, K)} {kw}")
+
+
+@pytest.mark.parametrize("C,cap,K,no_cross", [(256, 51, 64, False),
+                                              (1, 1, 1, False),
+                                              (300, 3, 8, False),
+                                              (256, 51, 64, True)])
+def test_g2_matches_plain(cuda, C, cap, K, no_cross):
+    smoke = _chip_smoke()
+    args = smoke.nf_grid(C, cap, K, C + cap + K, no_crossings=no_cross)
+    before = gate_kernel.launches["nf_floor"]
+    gate_kernel.nf_floor(*args)
+    assert gate_kernel.launches["nf_floor"] == before + 1
+    # the same float32 operations in the same order: equal bit for bit
+    assert smoke.compare_g2(args, f"{(C, cap, K)}")["bitwise"]
+
+
+def test_gate_wrappers_reject_bad_input(cuda):
+    args = list(_chip_smoke().gate_grid(4, 8, 0))
+    args[1] = args[1].to(torch.int64)
+    with pytest.raises(ValueError):
+        gate_kernel.gate_cuda(*args, 0.0, False)
+    z = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        gate_kernel.nf_floor_cuda(z.double(), z > 0, z.int(), z.int(), z[:, 0])
+
+
+@pytest.mark.parametrize("device_gate", [True, False])
+def test_pipeline_modes_on_card_match_cpu(cuda, device_gate):
+    """A short run of each gating mode on the card against the CPU; the
+    gated one launches K1, G1 and G2."""
+    os_ = 10
+    fs = 105000 * os_
+    center = 136975000
+    freqs = [center, center - 25000]
+    rng = np.random.default_rng(4)
+    sig = ((rng.standard_normal(700_000) + 1j * rng.standard_normal(
+        700_000)) * 0.007).astype(np.complex64)
+    payloads = [b"card vs cpu burst one", b"card vs cpu burst two"]
+    for k, (p, f) in enumerate(zip(payloads, freqs)):
+        b = synthesize_iq_raw([p], oversample=os_,
+                              carrier_offset_hz=f - center, seed=k)
+        sig[100_000 + 300_000 * k:][:b.size] += b * 0.5
+    out = []
+    before = dict(gate_kernel.launches)
+    for dev in ("cpu", "cuda"):
+        pipe = VDL2Pipeline(freqs, center, fs, os_, device=dev,
+                            device_gate=device_gate)
+        out.append(pipe.feed(sig[:400_000]) + pipe.feed(sig[400_000:],
+                                                        eof=True))
+    cpu, gpu = out
+    assert [(bytes(f.frame), f.metadata.freq) for f in gpu] == \
+        [(bytes(f.frame), f.metadata.freq) for f in cpu]
+    for a, b in zip(gpu, cpu):
+        assert abs(a.metadata.nf_pwr_dbfs - b.metadata.nf_pwr_dbfs) < 1e-4
+    for p, f in zip(payloads, freqs):
+        assert (frame_with_fcs(p), f) in \
+            [(bytes(g.frame), g.metadata.freq) for g in gpu]
+    launched = {k: gate_kernel.launches[k] - before[k] for k in before}
+    assert launched == ({"gate": 3, "nf_floor": 3} if device_gate
+                        else {"gate": 0, "nf_floor": 0}), launched
 
 
 def test_pipeline_on_card_matches_cpu(cuda):

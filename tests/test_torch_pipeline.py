@@ -1,8 +1,9 @@
 """PyTorch port vs JAX: the device-L2, host-gated receive pipeline.
 
-The JAX pipeline runs with DUMPVDL2_TPU_L2=1 DUMPVDL2_TPU_GATE=0 (the
-mode the port implements); the port runs with device="cpu".  On each
-scene the frames must agree: bytes, freq, datalen_octets, synd_weight,
+The JAX pipeline runs with DUMPVDL2_TPU_L2=1 DUMPVDL2_TPU_GATE=0; the
+port runs the same mode (device="cpu", device_gate=False); its gated
+mode is held to the JAX package in tests/test_torch_pipeline_gated.py.
+On each scene the frames must agree: bytes, freq, datalen_octets, synd_weight,
 num_fec_corrections and idx exactly; ppm_error, frame_pwr_dbfs and
 nf_pwr_dbfs within 1e-4 (burst_timestamp is wall time and ignored).
 Per-channel counters and carried state must agree too.  All scenes
@@ -45,7 +46,8 @@ def _burst(payload: bytes, off_hz: float, seed: int) -> np.ndarray:
 def _pipes():
     jp = JaxPipeline(FREQS, CENTER, FS, OS)
     assert jp.use_device_l2 and not jp.use_device_gate
-    return jp, VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu")
+    return jp, VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu",
+                            device_gate=False)
 
 
 def _feed_all(pipe, sig: np.ndarray, finish: bool = True):

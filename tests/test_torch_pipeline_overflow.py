@@ -45,7 +45,8 @@ def test_candidate_caps_overflow_like_jax(monkeypatch):
     sig = _dense_scene()
     outs = []
     for pipe in (JaxPipeline(FREQS, CENTER, FS, OS),
-                 VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu")):
+                 VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu",
+                              device_gate=False)):
         frames = []
         for off in range(0, sig.size, BLOCK):
             frames += pipe.feed(sig[off:off + BLOCK])
