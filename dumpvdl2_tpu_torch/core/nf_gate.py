@@ -24,12 +24,14 @@ Semantics, as in the JAX package:
   releases.  The ring holds RING columns per channel; columns beyond it
   are dropped (a noise-floor-only effect).
 
-The two sequential recurrences run in kernels G1 (the gating decisions)
-and G2 (the per-1000 floor updates and readings), see
-core/gate_kernel.py.  The EMA over the tracked columns is an affine
-first-order recurrence; PyTorch has no public associative scan, so it
-is a log-depth doubling scan of (scale, offset) pairs.  Its float32
-results match JAX's tree order to about 1e-6 relative, not bit for bit.
+Two kernels do the work, see core/gate_kernel.py: G1 (the gating
+decisions over the candidate slots and the hold bookkeeping,
+``_decisions``) and G2 (the tracker: the window mask, the ring replay,
+the EMA over the tracked columns, the per-1000 floor updates and the
+readings).  Only the ring update stays plain PyTorch here.  The EMA is
+an affine first-order recurrence summed in another association than
+JAX's ``associative_scan``: its float32 results match to about 1e-6
+relative, not bit for bit.
 
 int32 hygiene: every carried index is relative to the current block's
 base; the caller passes the clamped inter-block delta and the rebase
@@ -40,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import MAG_LP, SPS
+from ..constants import SPS
 from . import gate_kernel
 from .gate_scan import (V_ACCEPT, V_DEFER_DATA, V_EOF_SHORT, V_EOF_TRUNC,
                         V_HDR_REJECT, V_L2_OVERFLOW, V_PPM_REJECT,
@@ -107,16 +109,20 @@ def _rebase(state: dict, delta: int) -> dict:
 
 
 def _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row, hdr_rows,
-          bits_rows, state, freqs, max_ppm: float, eof: bool):
-    """Kernel G1 (or its plain twin) on the block's candidate slots."""
+          bits_rows, state, freqs, max_ppm: float, eof: bool, end_rel: int):
+    """Kernel G1 (or its plain twin) on the block's candidate slots:
+    ``(g, bits, dec)``, the verdicts and carried gate state, each slot's
+    bit count, and the hold decisions (:func:`_decisions`) with the
+    tracker's bounds ``low`` and ``f_track``."""
     i32 = torch.int32
     return gate_kernel.gate(
         count.to(i32).contiguous(), det_idx.to(i32).contiguous(),
         sync_idx.to(i32).contiguous(), sym_valid.to(i32).contiguous(),
         dphi.to(torch.float32).contiguous(), l2_row.to(i32).contiguous(),
         hdr_rows.contiguous(), bits_rows.to(i32).contiguous(),
-        state["busy_until"].contiguous(), state["next_det_min"].contiguous(),
-        freqs, max_ppm, eof)
+        *(state[k].contiguous() for k in ("busy_until", "next_det_min",
+                                          "hold", "hold_active")),
+        freqs, max_ppm, eof, end_rel)
 
 
 def _decisions(verdicts, sync_idx, bits, state, deferred) -> dict:
@@ -154,96 +160,28 @@ def _decisions(verdicts, sync_idx, bits, state, deferred) -> dict:
             "hold": hold1, "hold_active": hold1_act}
 
 
-def affine_scan(scale: torch.Tensor, off: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inclusive scan along dim 1 of the affine maps x -> scale*x + off
-    (left to right): ``(S, O)`` with y_i = S_i * y_{-1} + O_i.  A
-    doubling scan, ceil(log2 N) steps."""
-    S, O = scale, off
-    d = 1
-    while d < S.shape[1]:
-        O = torch.cat([O[:, :d], O[:, :-d] * S[:, d:] + O[:, d:]], dim=1)
-        S = torch.cat([S[:, :d], S[:, :-d] * S[:, d:]], dim=1)
-        d *= 2
-    return S, O
-
-
 def _nf_track(verdicts, sync_idx, bits, mags, col_pos, state, dec,
               deferred, end_rel: int):
-    """Masked EMA + noise-floor crossings for one block.
+    """Noise-floor tracker (kernel G2, or its plain twin) and ring update
+    for one block.
 
     The processed column stream is [ring (hold-release replay)] ++
     [this block's columns]; ``col_pos`` (W,) int32 are the rebased
     decimated indices of the block's columns, strictly increasing.
     Returns (nf_read (C, K), new tracker and ring state).
     """
-    C, K = verdicts.shape
     W = mags.shape[1]
     dev = verdicts.device
     i32 = torch.int32
     busy0 = state["busy_until"]
-    mag_lp0, mag_nf0, nfcnt0 = (state["mag_lp"], state["mag_nf"],
-                                state["nfcnt"])
     ring_pos, ring_val, ring_n = (state["ring_pos"], state["ring_val"],
                                   state["ring_n"])
     R = ring_pos.shape[1]
-    floor = torch.full_like(busy0, _FLOOR)
-
-    # --- block-column mask --------------------------------------------
-    total_syms = ceil_syms(bits)
-    is_rej = verdicts == V_HDR_REJECT
-    win = is_rej | (verdicts == V_ACCEPT)
-    we = sync_idx + torch.where(is_rej, 9 * SPS, total_syms * SPS).to(i32)
-    a = torch.searchsorted(col_pos, sync_idx.reshape(-1).contiguous(),
-                           out_int32=True).reshape(C, K)
-    b = torch.searchsorted(col_pos, we.reshape(-1).contiguous(),
-                           out_int32=True).reshape(C, K)
-    rows = torch.arange(C, device=dev)[:, None].expand(C, K)
-    dlt = torch.zeros((C, W + 1), dtype=i32, device=dev)
-    dlt.index_put_((rows, a.long()), win.to(i32), accumulate=True)
-    dlt.index_put_((rows, b.long()), -win.to(i32), accumulate=True)
-    inwin = torch.cumsum(dlt, dim=1, dtype=i32)[:, :W] > 0
-
-    low = torch.maximum(busy0, dec["drop_end"])
-    # while a hold persists, block columns are saved (ring), not tracked
-    f_track = torch.where(dec["persist"], floor,
-                          torch.where(deferred >= 0, deferred,
-                                      torch.full_like(busy0, end_rel)))
-    track_blk = (col_pos[None, :] >= low[:, None]) \
-        & (col_pos[None, :] < f_track[:, None]) & ~inwin
-
-    # --- ring replay (prefix of the stream) ---------------------------
-    slot = torch.arange(R, dtype=i32, device=dev)[None, :]
-    track_ring = (slot < ring_n[:, None]) & dec["released"][:, None] \
-        & (ring_pos >= dec["ring_filter"][:, None])
-
-    mags_all = torch.cat([ring_val, mags], dim=1)
-    track = torch.cat([track_ring, track_blk], dim=1)
-
-    # --- EMA over tracked columns (affine doubling scan) --------------
-    # float32 constants as exact Python floats: no host-to-device copy
-    scale = torch.where(track, float(np.float32(MAG_LP)), 1.0)
-    off = torch.where(track, mags_all * float(np.float32(1.0 - MAG_LP)), 0.0)
-    S, O = affine_scan(scale, off)
-    y = S * mag_lp0[:, None] + O
-    del scale, off, S, O
-    s_cnt = torch.cumsum(track, dim=1, dtype=i32)
-    total_n = s_cnt[:, -1]
-
-    # --- per-1000 noise-floor crossings (kernel G2) -------------------
-    cap = (R + W) // 1000 + 1
-    steps = torch.arange(1, cap + 1, dtype=i32, device=dev)[None, :]
-    targets = (steps * 1000 - nfcnt0[:, None]).contiguous()
-    jc = torch.searchsorted(s_cnt, targets, out_int32=True)
-    ncross = torch.div(nfcnt0 + total_n, 1000, rounding_mode="floor")
-    valid_c = steps <= ncross[:, None]
-    y_cross = torch.take_along_dim(y, jc.clamp(0, R + W - 1).long(), dim=1)
-    bound = R + torch.searchsorted(col_pos,
-                                   sync_idx.reshape(-1).contiguous(),
-                                   out_int32=True).reshape(C, K)
-    mag_nf1, nf_read = gate_kernel.nf_floor(
-        y_cross.contiguous(), valid_c.contiguous(), jc.contiguous(),
-        bound.contiguous(), mag_nf0.contiguous())
+    mag_lp1, mag_nf1, nfcnt1, nf_read, _ = gate_kernel.nf_track(
+        mags.contiguous(), col_pos.contiguous(), verdicts, sync_idx, bits,
+        dec["low"], dec["f_track"], dec["released"], dec["ring_filter"],
+        ring_pos, ring_val, ring_n, state["mag_lp"], state["mag_nf"],
+        state["nfcnt"])
 
     # --- ring update ---------------------------------------------------
     # appended while the hold persists: columns past the busy frontier,
@@ -251,6 +189,7 @@ def _nf_track(verdicts, sync_idx, bits, mags, col_pos, state, dec,
     # j_lo + n_app) of block columns, so ring slot s holds column
     # j_lo + (s - base_n): one gather from the block padded by R on
     # both sides.
+    slot = torch.arange(R, dtype=i32, device=dev)[None, :]
     f_app = torch.where(deferred >= 0, deferred,
                         torch.full_like(busy0, end_rel))
     app = dec["persist"][:, None] & (col_pos[None, :] >= busy0[:, None]) \
@@ -261,6 +200,7 @@ def _nf_track(verdicts, sync_idx, bits, mags, col_pos, state, dec,
     pos1 = torch.where(keep_old, ring_pos, torch.full_like(ring_pos, _FLOOR))
     val1 = torch.where(keep_old, ring_val, torch.zeros_like(ring_val))
     if W > 0:
+        C = mags.shape[0]
         j_lo = torch.argmax(app.to(i32), dim=1).to(i32)
         is_app = (slot >= base_n[:, None]) \
             & (slot < (base_n + n_app)[:, None])
@@ -279,8 +219,7 @@ def _nf_track(verdicts, sync_idx, bits, mags, col_pos, state, dec,
                            val1)
     ring_n1 = torch.clamp(base_n + n_app, max=R).to(i32)
 
-    new = {"mag_lp": y[:, -1].contiguous(), "mag_nf": mag_nf1,
-           "nfcnt": torch.remainder(nfcnt0 + total_n, 1000).to(i32),
+    new = {"mag_lp": mag_lp1, "mag_nf": mag_nf1, "nfcnt": nfcnt1,
            "ring_pos": pos1, "ring_val": val1, "ring_n": ring_n1}
     return nf_read, new
 
@@ -319,15 +258,16 @@ def gate_nf_single(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
     new_state) where ``out`` is what the host drain fetches.
     """
     st = _rebase(state, delta)
-    g, bits = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
-                    hdr_rows, bits_rows, st, freqs, max_ppm, eof=False)
     W = pwr3.shape[1]
+    end_rel = int(nf_base_rel) + 3 * W
+    sync_idx = sync_idx.to(torch.int32).contiguous()
+    g, bits, dec = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
+                         hdr_rows, bits_rows, st, freqs, max_ppm, False,
+                         end_rel)
     col_pos = int(nf_base_rel) + 3 * torch.arange(W, dtype=torch.int32,
                                                   device=pwr3.device)
-    dec = _decisions(g["verdicts"], sync_idx, bits, st, g["deferred_at"])
     nf_read, nf_new = _nf_track(g["verdicts"], sync_idx, bits, mag(pwr3),
-                                col_pos, st, dec, g["deferred_at"],
-                                int(nf_base_rel) + 3 * W)
+                                col_pos, st, dec, g["deferred_at"], end_rel)
     new_state = _finish_state(g, dec, nf_new)
     return _out(g, nf_read, new_state), new_state
 
@@ -339,11 +279,12 @@ def gate_only(count, det_idx, sync_idx, sym_valid, dphi, l2_row, hdr_rows,
     re-demodulates the carried halo; a resolution can still release the
     hold and replay the ring)."""
     st = _rebase(state, delta)
-    g, bits = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
-                    hdr_rows, bits_rows, st, freqs, max_ppm, eof=eof)
+    sync_idx = sync_idx.to(torch.int32).contiguous()
+    g, bits, dec = _gate(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
+                         hdr_rows, bits_rows, st, freqs, max_ppm, eof,
+                         _FLOOR)
     C = det_idx.shape[0]
     dev = det_idx.device
-    dec = _decisions(g["verdicts"], sync_idx, bits, st, g["deferred_at"])
     nf_read, nf_new = _nf_track(
         g["verdicts"], sync_idx, bits,
         torch.zeros((C, 0), dtype=torch.float32, device=dev),

@@ -1,4 +1,5 @@
-"""PyTorch port on the card: kernels K1, G1 and G2 and the CUDA paths.
+"""PyTorch port on the card: kernels K1, G1 and G2 (nf_track) and the
+CUDA paths.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so on the GPU machine it runs without
@@ -88,36 +89,47 @@ def _chip_smoke():
     (256, 64, {"base": 2**31 - 900}), (64, 64, {"negative_bits": True})])
 @pytest.mark.parametrize("eof,max_ppm", [(False, 5.0), (True, 0.0)])
 def test_g1_matches_plain(cuda, C, K, kw, eof, max_ppm):
+    """Verdicts, gate state, bits and the hold decisions with the
+    tracker's bounds: all equal to the plain version's."""
     smoke = _chip_smoke()
     args = smoke.gate_grid(C, K, C * 7 + K, **kw)
     before = gate_kernel.launches["gate"]
-    gate_kernel.gate(*args, max_ppm, eof)
+    gate_kernel.gate(*args, max_ppm, eof, 52428)
     assert gate_kernel.launches["gate"] == before + 1
-    smoke.compare_g1(args, max_ppm, eof, f"{(C, K)} {kw}")
+    smoke.compare_g1(args, max_ppm, eof, 52428, f"{(C, K)} {kw}")
 
 
-@pytest.mark.parametrize("C,cap,K,no_cross", [(256, 51, 64, False),
-                                              (1, 1, 1, False),
-                                              (300, 3, 8, False),
-                                              (256, 51, 64, True)])
-def test_g2_matches_plain(cuda, C, cap, K, no_cross):
+@pytest.mark.parametrize("C,W,K,R,kw", [
+    (256, 17476, 64, 32768, {}),
+    (256, 17476, 64, 32768, {"replay": 0.6}),
+    (256, 17476, 64, 32768, {"persist": 0.5, "replay": 0.3}),
+    (256, 0, 64, 32768, {"replay": 0.7}),
+    (256, 300, 64, 512, {"nfcnt_max": 400}),
+    (64, 9000, 64, 4096, {"negative_bits": True, "replay": 0.5}),
+    (1, 1, 1, 1, {"replay": 1.0}),
+    (3, 9000, 300, 9000, {"replay": 1.0})])
+def test_g2_matches_plain(cuda, C, W, K, R, kw):
+    """nf_track: the count and the crossing columns equal the plain
+    version's, the floats within rtol 1e-5, atol 1e-7."""
     smoke = _chip_smoke()
-    args = smoke.nf_grid(C, cap, K, C + cap + K, no_crossings=no_cross)
-    before = gate_kernel.launches["nf_floor"]
-    gate_kernel.nf_floor(*args)
-    assert gate_kernel.launches["nf_floor"] == before + 1
-    # the same float32 operations in the same order: equal bit for bit
-    assert smoke.compare_g2(args, f"{(C, cap, K)}")["bitwise"]
+    args = smoke.track_args(smoke.track_grid(C, W, K, R, C + W + K, **kw),
+                            cuda)
+    before = gate_kernel.launches["nf_track"]
+    gate_kernel.nf_track(*args)
+    assert gate_kernel.launches["nf_track"] == before + 1
+    smoke.compare_track(args, f"{(C, W, K, R)} {kw}")
 
 
 def test_gate_wrappers_reject_bad_input(cuda):
-    args = list(_chip_smoke().gate_grid(4, 8, 0))
+    smoke = _chip_smoke()
+    args = list(smoke.gate_grid(4, 8, 0))
     args[1] = args[1].to(torch.int64)
     with pytest.raises(ValueError):
-        gate_kernel.gate_cuda(*args, 0.0, False)
-    z = torch.zeros((4, 3), device=cuda)
+        gate_kernel.gate_cuda(*args, 0.0, False, 0)
+    targs = list(smoke.track_args(smoke.track_grid(4, 30, 3, 8, 0), cuda))
+    targs[0] = targs[0].double()
     with pytest.raises(ValueError):
-        gate_kernel.nf_floor_cuda(z.double(), z > 0, z.int(), z.int(), z[:, 0])
+        gate_kernel.nf_track_cuda(*targs)
 
 
 @pytest.mark.parametrize("device_gate", [True, False])
@@ -152,8 +164,8 @@ def test_pipeline_modes_on_card_match_cpu(cuda, device_gate):
         assert (frame_with_fcs(p), f) in \
             [(bytes(g.frame), g.metadata.freq) for g in gpu]
     launched = {k: gate_kernel.launches[k] - before[k] for k in before}
-    assert launched == ({"gate": 3, "nf_floor": 3} if device_gate
-                        else {"gate": 0, "nf_floor": 0}), launched
+    assert launched == ({"gate": 3, "nf_track": 3} if device_gate
+                        else {"gate": 0, "nf_track": 0}), launched
 
 
 def test_pipeline_on_card_matches_cpu(cuda):

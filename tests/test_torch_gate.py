@@ -1,10 +1,12 @@
 """PyTorch port vs JAX: the device gate (G1, G2 and the gate step).
 
 * G1's plain version (``gate_kernel.gate_plain`` = ``_slot_inputs`` +
-  ``gate_scan``) against the JAX package's ``nf_gate._gate`` on
+  ``gate_scan`` + ``nf_gate._decisions`` and the tracker's bounds)
+  against the JAX package's ``nf_gate._gate`` + ``_decisions`` on
   randomized scenarios shaped like tests/test_gate_scan.py's: eof False
-  and True, max_ppm 0 and 5, L2 rows of -1, K = 8 and K = 64.  Every
-  output is an integer and must match exactly.
+  and True, max_ppm 0 and 5, L2 rows of -1, K = 8 and K = 64, holds
+  active, recovered and not.  Every output is an integer and must match
+  exactly.
 * ``gate_nf_single`` and ``gate_only`` against the JAX package's on
   chains of fabricated blocks that reach every branch of
   ``_decisions``: holds released by a decision, persisting and
@@ -12,8 +14,9 @@
   ring overflow (a small ring); rebases clamped at _FLOOR.  Verdicts,
   integer state and the ring must match exactly; mag_lp, mag_nf and
   nf_read within rtol 1e-5, atol 1e-7.
-* G2's plain version against the JAX package's ``nf_step`` scan and
-  per-candidate read-out (nf_gate.py:264-286).
+* The floor recurrence inside G2's plain version against the JAX
+  package's ``nf_step`` scan and per-candidate read-out
+  (nf_gate.py:264-286).  G2 as a whole: tests/test_torch_gate_fused.py.
 * ``csrc/gate.cu``'s constants equal the plain versions' float32 ones,
   and the CUDA wrappers refuse tensors that are not on a GPU.
 """
@@ -27,7 +30,7 @@ import pytest
 import torch
 from _torch_port import one_torch_thread  # noqa: F401
 
-from dumpvdl2_tpu.constants import NF_LP, SYMBOL_RATE
+from dumpvdl2_tpu.constants import MAG_LP, NF_LP, SYMBOL_RATE
 from dumpvdl2_tpu.core import nf_gate as jnf
 from dumpvdl2_tpu_torch.core import gate_kernel, gate_scan
 from dumpvdl2_tpu_torch.core import nf_gate as tnf
@@ -72,7 +75,10 @@ def _scenario(rng, K):
                 bits_rows=bits_rows,
                 busy0=rng.integers(0, 500, C).astype(np.int32),
                 next0=rng.integers(0, 500, C).astype(np.int32),
-                max_ppm=float(rng.choice([0.0, 5.0])))
+                max_ppm=float(rng.choice([0.0, 5.0])),
+                hold=rng.integers(-300, 2000, C).astype(np.int32),
+                hold_active=rng.random(C) < 0.6,
+                end_rel=int(rng.integers(3000, 9000)))
 
 
 @pytest.mark.parametrize("K", [8, 64])
@@ -84,12 +90,20 @@ def test_g1_plain_matches_jax_gate(K, eof):
         sc = _scenario(rng, K)
         slots = (sc["count"], sc["det"], sc["sync"], sc["sym_valid"],
                  sc["dphi"], sc["l2_row"], sc["hdr_rows"], sc["bits_rows"])
-        jg, jbits = jnf._gate(
-            *slots, {"busy_until": sc["busy0"], "next_det_min": sc["next0"]},
-            FREQS, sc["max_ppm"], eof=eof)
-        tg, tbits = gate_kernel.gate_plain(
+        state = {"busy_until": sc["busy0"], "next_det_min": sc["next0"],
+                 "hold": sc["hold"], "hold_active": sc["hold_active"]}
+        jg, jbits = jnf._gate(*slots, state, FREQS, sc["max_ppm"], eof=eof)
+        jdec = jnf._decisions(jg["verdicts"], sc["sync"], jbits, state,
+                              jg["deferred_at"])
+        jdec["low"] = np.maximum(sc["busy0"], jdec["drop_end"])
+        jdec["f_track"] = np.where(
+            jdec["persist"], jnf._FLOOR,
+            np.where(jg["deferred_at"] >= 0, jg["deferred_at"],
+                     sc["end_rel"]))
+        tg, tbits, tdec = gate_kernel.gate_plain(
             *(_t(x) for x in slots), _t(sc["busy0"]), _t(sc["next0"]),
-            _t(FREQS), sc["max_ppm"], eof)
+            _t(sc["hold"]), _t(sc["hold_active"]), _t(FREQS), sc["max_ppm"],
+            eof, sc["end_rel"])
         ctx = f"trial {trial}"
         for k in ("verdicts", "busy_until", "next_det_min", "deferred_at"):
             assert tg[k].dtype == {"verdicts": torch.int8}.get(
@@ -97,7 +111,25 @@ def test_g1_plain_matches_jax_gate(K, eof):
             np.testing.assert_array_equal(tg[k].numpy(), np.asarray(jg[k]),
                                           err_msg=f"{ctx} {k}")
         np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
+        assert set(tdec) == set(jdec) == set(gate_kernel.DEC_INT
+                                             + gate_kernel.DEC_BOOL)
+        for k in tdec:
+            assert tdec[k].dtype == (torch.bool if k in gate_kernel.DEC_BOOL
+                                     else torch.int32), k
+            np.testing.assert_array_equal(tdec[k].numpy(),
+                                          np.asarray(jdec[k]),
+                                          err_msg=f"{ctx} {k}")
         seen.update(np.unique(tg["verdicts"].numpy()).tolist())
+        decided = np.isin(tg["verdicts"].numpy(),
+                          tnf.DECIDED_VERDICTS).any(axis=1)
+        rel = tdec["released"].numpy()
+        seen.update({"released by a decision"} if (rel & decided).any()
+                    else set())
+        seen.update({"released, recovered"} if (rel & ~decided).any()
+                    else set())
+        seen.update({"persist"} if tdec["persist"].numpy().any() else set())
+        seen.update({"drop_end"} if (tdec["drop_end"].numpy()
+                                     > jnf._FLOOR).any() else set())
     # the scenarios reach the decisions of this mode
     want = {gate_scan.V_EMPTY, gate_scan.V_SKIP, gate_scan.V_L2_OVERFLOW,
             gate_scan.V_HDR_REJECT, gate_scan.V_ACCEPT,
@@ -105,7 +137,12 @@ def test_g1_plain_matches_jax_gate(K, eof):
     want |= ({gate_scan.V_EOF_SHORT, gate_scan.V_EOF_TRUNC} if eof else
              {gate_scan.V_DEFER, gate_scan.V_DEFER_DATA,
               gate_scan.V_UNPROCESSED})
-    assert want <= seen, sorted(want - seen)
+    want |= {"released by a decision", "drop_end"}
+    if not eof:
+        # at EOF nothing defers: a hold then persists or is re-covered
+        # only on a channel without decisions, which these rarely have
+        want |= {"persist", "released, recovered"}
+    assert want <= seen, sorted(map(str, want - seen))
 
 
 def test_gate_scan_wraps_int32_like_jax():
@@ -198,10 +235,8 @@ def _cmp_state(ts, js, ctx):
 def _coverage(st, slots, H, delta, max_ppm, eof_flush):
     """Which _decisions branches this step reaches (port side)."""
     st = tnf._rebase(st, delta)
-    g, bits = tnf._gate(*(_t(x) for x in slots), st, _t(FREQS), max_ppm,
-                        eof_flush)
-    dec = tnf._decisions(g["verdicts"], _t(slots[2]), bits, st,
-                         g["deferred_at"])
+    g, bits, dec = tnf._gate(*(_t(x) for x in slots), st, _t(FREQS),
+                             max_ppm, eof_flush, H + 3 * W)
     any_dec = torch.zeros(C, dtype=torch.bool)
     for v in tnf.DECIDED_VERDICTS:
         any_dec |= (g["verdicts"] == v).any(dim=1)
@@ -342,6 +377,12 @@ def test_gate_cu_constants_equal_plain_float32():
     assert const("kNfA") == gate_kernel.NF_A == np.float32(NF_LP)
     assert const("kNfB") == gate_kernel.NF_B == np.float32(1.0 - NF_LP)
     assert const("kNfEps") == gate_kernel.NF_EPS == np.float32(1e-4)
+    assert const("kMagA") == np.float32(MAG_LP)
+    assert const("kMagB") == np.float32(1.0 - MAG_LP)
+    assert re.search(r"kNfEvery = (\d+);", src).group(1) == \
+        str(gate_kernel.NF_EVERY)
+    assert re.search(r"kFloor = -\(1 << (\d+)\);", src).group(1) == "30"
+    assert tnf._FLOOR == -(1 << 30)
     assert re.search(r"kMinHdrSyms = (\d+);", src).group(1) == \
         str(gate_scan._MIN_HDR_SYMS)
     assert re.search(r"kSps = (\d+);", src).group(1) == str(tnf.SPS)
@@ -354,19 +395,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     sc = _scenario(rng, 8)
     args = [_t(sc[k]) for k in ("count", "det", "sync", "sym_valid", "dphi",
                                 "l2_row", "hdr_rows", "bits_rows", "busy0",
-                                "next0")] + [_t(FREQS)]
+                                "next0", "hold", "hold_active")] + [_t(FREQS)]
     before = dict(gate_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        gate_kernel.gate_cuda(*args, 0.0, False)
-    z = torch.zeros((C, 3))
+        gate_kernel.gate_cuda(*args, 0.0, False, 100)
+    smoke = _chip_smoke()
+    targs = smoke.track_args(smoke.track_grid(C, 40, 3, 8, seed=0), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        gate_kernel.nf_floor_cuda(z, z > 0, z.to(torch.int32),
-                                  torch.zeros((C, 2), dtype=torch.int32),
-                                  torch.ones(C))
+        gate_kernel.nf_track_cuda(*targs)
     assert gate_kernel.launches == before
     # on the CPU the wrappers run the plain versions and count nothing
-    g, _ = gate_kernel.gate(*args, 0.0, False)
+    g, _, dec = gate_kernel.gate(*args, 0.0, False, 100)
     assert g["verdicts"].dtype == torch.int8
+    assert dec["released"].dtype == torch.bool
+    out = gate_kernel.nf_track(*targs)
+    assert [x.dtype for x in out] == [torch.float32] * 2 + [torch.int32] \
+        + [torch.float32, torch.int32]
     assert gate_kernel.launches == before
 
 
@@ -387,23 +431,33 @@ def test_gate_bounds_by_hand():
     issue = 128 * sms * clock
     C, K = 256, 64
     b = smoke.g1_bound(C, K, C * K, sms, clock)
-    # in: count, busy, next, freqs (C,); det, sync, sym_valid, l2_row,
-    # dphi (C, K) 4 bytes each; hdr (1 B) and bits (4 B) rows.  Out:
-    # verdicts (1 B) and bits (4 B) a slot; busy, next, deferred (C,).
-    nbytes = 16 * C + 20 * C * K + 5 * C * K + 5 * C * K + 12 * C
+    # in: count, busy, next, hold, freqs (4 B) and hold_active (1 B) a
+    # channel; det, sync, sym_valid, l2_row, dphi (C, K) 4 bytes each;
+    # hdr (1 B) and bits (4 B) rows.  Out: verdicts (1 B) and bits (4 B)
+    # a slot; eight int32 and three bool decisions a channel.
+    nbytes = 21 * C + 20 * C * K + 5 * C * K + 5 * C * K + 35 * C
     assert b["bytes_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
-    assert b["ops_ms"] == pytest.approx(20 * C * K / issue * 1e3)
+    assert b["ops_ms"] == pytest.approx((20 * C * K + 15 * C) / issue
+                                        * 1e3)
     assert b["bound_by"] == "bytes"
-    cap = 51
-    valid = torch.zeros((C, cap), dtype=torch.bool)
-    valid[:, :10] = True
-    args = (torch.zeros((C, cap)), valid,
-            torch.zeros((C, cap), dtype=torch.int32),
-            torch.zeros((C, K), dtype=torch.int32), torch.zeros(C))
-    b2 = smoke.g2_bound(args, sms, clock)
-    nbytes = (4 + 1 + 4) * C * cap + 4 * C * K + 4 * C + 4 * C + 4 * C * K
+    W, R = 17476, 32768
+    grid = smoke.track_grid(C, 8, K, 4, seed=1)
+    args = list(smoke.track_args(grid, "cpu"))
+    args[0] = torch.zeros((C, W))                      # mags
+    args[1] = torch.arange(W, dtype=torch.int32)       # col_pos
+    args[7] = torch.arange(C) % 2 == 0                 # released
+    args[9] = torch.zeros((C, R), dtype=torch.int32)   # ring_pos
+    args[10] = torch.zeros((C, R))                     # ring_val
+    args[11] = torch.full((C,), 100, dtype=torch.int32)  # ring_n
+    b2 = smoke.g2_bound(tuple(args), 3000, sms, clock)
+    cap = (R + W) // 1000 + 1
+    replayed = 100 * C // 2
+    nbytes = 4 * C * W + 8 * replayed + 9 * C * K + 41 * C \
+        + 4 * C * K + 4 * C * cap
     assert b2["bytes_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
-    n_valid = 10 * C
-    assert b2["ops_ms"] == pytest.approx((5 * n_valid + 2 * K * n_valid)
-                                         / issue * 1e3)
+    # the magnitudes alone: 17.9 MB, 5.3 us at 3.35 TB/s
+    assert 5.3e-3 < b2["bytes_ms"] < 5.5e-3
+    assert b2["ops_ms"] == pytest.approx(
+        (6 * (C * W + replayed) + 5 * 3000 + 18 * C * K) / issue * 1e3)
+    assert b2["bound_by"] == "bytes"
     assert b2["bound_ms"] == max(b2["bytes_ms"], b2["ops_ms"])
