@@ -13,9 +13,8 @@ What differs:
   device" message unless it is given ``--platform cpu``.
 * ``--profile DIR`` writes a ``torch.profiler`` trace (Chrome trace
   format) to ``DIR/trace.json``.
-* The SDR inputs (``--rtlsdr``, ``--mirisdr``, ``--sdrplay``,
-  ``--sdrplay3``, ``--soapysdr``) and ``--mesh`` are not ported yet and
-  exit 1 with a message saying so.
+* ``--mesh CxT`` with ``--platform cpu`` lays the C*T shards on the CPU;
+  on CUDA it needs C*T visible GPUs, or exits 1 with the mesh's message.
 """
 from __future__ import annotations
 
@@ -33,8 +32,6 @@ from .stats import stats
 
 DEFAULT_OUTPUT = "decoded:text:file:path=-"
 PLATFORMS = {"gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
-_NOT_PORTED = ("rtlsdr", "mirisdr", "sdrplay", "sdrplay3", "soapysdr",
-               "mesh")
 
 
 def parse_frequency(s: str) -> int:
@@ -84,10 +81,64 @@ def build_parser() -> argparse.ArgumentParser:
                          f"{SYMBOL_RATE * SPS} * this value")
     gi.add_argument("--centerfreq", type=parse_frequency, default=None,
                     help="center frequency of the recorded IQ data (Hz)")
-    for flag in ("--rtlsdr", "--mirisdr", "--sdrplay", "--sdrplay3",
-                 "--soapysdr"):
-        gi.add_argument(flag, default=None, metavar="DEVICE",
-                        help="SDR input (not ported yet)")
+    gi.add_argument("--rtlsdr", default=None, metavar="DEVICE",
+                    help="read from an RTL-SDR device (index or serial; "
+                         "8-char strings match serials exactly, then by "
+                         "prefix/suffix)")
+    gi.add_argument("--bias", type=int, default=0, choices=(0, 1),
+                    help="enable RTL-SDR bias tee")
+    gi.add_argument("--bandwidth", type=int, default=0,
+                    help="tuner bandwidth in Hz (0 = auto)")
+    gi.add_argument("--mirisdr", default=None, metavar="DEVICE",
+                    help="read from a Mirics device (index or serial)")
+    gi.add_argument("--hw-type", type=int, default=0, choices=(0, 1),
+                    dest="mirisdr_hw_flavour",
+                    help="Mirics hardware variant: 0=generic, 1=SDRplay")
+    gi.add_argument("--usb-mode", type=int, default=0, choices=(0, 1),
+                    dest="mirisdr_usb_xfer_mode",
+                    help="Mirics USB transfer mode: 0=isochronous, 1=bulk")
+    gi.add_argument("--sdrplay", default=None, metavar="DEVICE",
+                    help="read from an SDRPlay RSP device via the "
+                         "legacy API v2 (index or serial)")
+    gi.add_argument("--sdrplay3", default=None, metavar="DEVICE",
+                    help="read from an SDRPlay RSP device via the "
+                         "sdrplay_api service v3 (serial or index)")
+    gi.add_argument("--gr", type=int, default=None,
+                    help="SDRPlay v2 system gain reduction in dB, "
+                         "positive (omit for auto gain)")
+    gi.add_argument("--ifgr", type=int, default=None,
+                    help="SDRPlay v3 IF gain reduction in dB, positive "
+                         "(omit for auto gain)")
+    gi.add_argument("--lna-state", type=int, default=None,
+                    help="SDRPlay v3 LNA state, non-negative; higher "
+                         "state = higher gain reduction")
+    gi.add_argument("--agc", type=int, default=0,
+                    help="SDRPlay auto gain set point in dBFS, negative "
+                         "(default: -30)")
+    gi.add_argument("--biast", type=int, default=0, choices=(0, 1),
+                    help="SDRPlay RSP2/1a/duo/dx Bias-T control")
+    gi.add_argument("--notch-filter", type=int, default=0,
+                    choices=(0, 1),
+                    help="SDRPlay AM/FM/bcast notch filter control")
+    gi.add_argument("--dab-notch-filter", type=int, default=0,
+                    choices=(0, 1),
+                    help="SDRPlay RSP1a/duo/dx DAB notch filter control")
+    gi.add_argument("--tuner", type=int, default=1, choices=(1, 2),
+                    help="SDRPlay RSPduo tuner selection (default: 1)")
+    gi.add_argument("--soapysdr", help="read from a SoapySDR device "
+                                       "(device query string)")
+    gi.add_argument("--gain", type=float, default=None,
+                    help="SDR gain in dB")
+    gi.add_argument("--correction", type=float, default=0.0,
+                    help="SDR frequency correction in ppm")
+    gi.add_argument("--device-settings",
+                    help="SoapySDR device settings (k1=v1,k2=v2)")
+    gi.add_argument("--antenna", help="antenna port selection (SDRPlay "
+                                      "A/B/C; also accepted by SoapySDR)")
+    gi.add_argument("--soapy-antenna", help="SoapySDR antenna selection")
+    gi.add_argument("--soapy-gain",
+                    help="SoapySDR per-element gains (name1=v1,name2=v2); "
+                         "takes precedence over --gain")
 
     go = p.add_argument_group("output options")
     go.add_argument("--output", action="append", default=[],
@@ -149,7 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a torch.profiler trace of the run to "
                          "DIR/trace.json (Chrome trace format)")
     gt.add_argument("--mesh", default=None, metavar="CxT",
-                    help="sharded (channel x time) run (not ported yet)")
+                    help="shard the DSP over a (channel x time) device "
+                         "mesh, e.g. 1x4 (CPU: the shards share the CPU; "
+                         "CUDA: needs C*T GPUs)")
     gt.add_argument("--decode-workers", type=_nonneg_int, default=0,
                     metavar="N",
                     help="fan the host protocol stack (L3/L4) out over "
@@ -269,11 +322,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if _maybe_print_spec_help(args):
         return 0
-    for name in _NOT_PORTED:
-        if getattr(args, name) is not None:
-            print(f"error: --{name} is not ported yet to the PyTorch/CUDA "
-                  "package (use python -m dumpvdl2_tpu)", file=sys.stderr)
-            return 1
     apply_config(args)
     from ..utils.devices import resolve_device
     try:
@@ -282,6 +330,12 @@ def main(argv=None) -> int:
         print(f"error: {exc} (or run with --platform cpu)",
               file=sys.stderr)
         return 1
+    if args.mesh:
+        try:
+            _check_mesh(args, device)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
 
     fmtr_list = []
     try:
@@ -324,9 +378,34 @@ def main(argv=None) -> int:
         elif args.iq_file:
             Config.output_queue_hwm = 0
             rc = run_iq_file(args, decoder, device)
+        elif args.rtlsdr is not None:
+            from ..io.rtl import RTL_OVERSAMPLE, SDR_AUTO_GAIN, run_rtlsdr
+            args.oversample = RTL_OVERSAMPLE
+            if args.gain is None:
+                args.gain = SDR_AUTO_GAIN
+            rc = run_rtlsdr(args, decoder, _make_pipeline(args, device))
+        elif args.mirisdr is not None:
+            from ..io.mirics import (MIRISDR_OVERSAMPLE, SDR_AUTO_GAIN,
+                                     run_mirics)
+            args.oversample = MIRISDR_OVERSAMPLE
+            if args.gain is None:
+                args.gain = SDR_AUTO_GAIN
+            rc = run_mirics(args, decoder, _make_pipeline(args, device))
+        elif args.sdrplay is not None:
+            from ..io.sdrplay import SDRPLAY_OVERSAMPLE, run_sdrplay
+            args.oversample = SDRPLAY_OVERSAMPLE
+            rc = run_sdrplay(args, decoder, _make_pipeline(args, device))
+        elif args.sdrplay3 is not None:
+            from ..io.sdrplay3 import SDRPLAY3_OVERSAMPLE, run_sdrplay3
+            args.oversample = SDRPLAY3_OVERSAMPLE
+            rc = run_sdrplay3(args, decoder, _make_pipeline(args, device))
+        elif args.soapysdr is not None:
+            from ..io.sdr import run_soapysdr
+            rc = run_soapysdr(args, decoder, _make_pipeline(args, device))
         else:
-            print("error: no input specified (--iq-file or "
-                  "--raw-frames-file)", file=sys.stderr)
+            print("error: no input specified (--iq-file, "
+                  "--raw-frames-file, --rtlsdr, --mirisdr, --sdrplay, "
+                  "--sdrplay3 or --soapysdr)", file=sys.stderr)
             return 1
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
@@ -344,6 +423,33 @@ def main(argv=None) -> int:
     return rc
 
 
+def _mesh_shape(spec: str) -> tuple[int, int]:
+    try:
+        cn, tn = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"invalid --mesh spec {spec!r} (expected CxT, "
+                         "e.g. 2x4)")
+    return cn, tn
+
+
+def _mesh_devices(shape: tuple[int, int], device):
+    """The mesh's devices: the CPU repeated for ``--platform cpu``, else
+    every visible GPU (parallel/mesh.make_mesh's default)."""
+    return [device] * (shape[0] * shape[1]) if device.type == "cpu" \
+        else None
+
+
+def _check_mesh(args: argparse.Namespace, device) -> None:
+    """Raise ValueError with the reason when ``--mesh`` cannot run."""
+    from ..parallel.mesh import make_mesh
+    shape = _mesh_shape(args.mesh)
+    n_freqs = len(args.frequencies or [CSC_FREQ])
+    if n_freqs % shape[0]:
+        raise ValueError(f"channel count {n_freqs} not divisible by "
+                         f"channel shards {shape[0]}")
+    make_mesh(*shape, _mesh_devices(shape, device))
+
+
 def _make_pipeline(args: argparse.Namespace, device):
     from ..core.pipeline import VDL2Pipeline
     freqs = args.frequencies or [CSC_FREQ]
@@ -354,10 +460,15 @@ def _make_pipeline(args: argparse.Namespace, device):
         centerfreq = freqs[0]
     else:
         centerfreq = (min(freqs) + max(freqs)) // 2
-    return VDL2Pipeline(freqs=freqs, centerfreq=centerfreq,
-                        sample_rate=sample_rate, oversample=args.oversample,
-                        max_ppm=args.max_ppm, station_id=args.station_id,
-                        device=device)
+    common = dict(freqs=freqs, centerfreq=centerfreq,
+                  sample_rate=sample_rate, oversample=args.oversample,
+                  max_ppm=args.max_ppm, station_id=args.station_id)
+    if args.mesh:
+        from ..core.mesh_pipeline import MeshPipeline
+        shape = _mesh_shape(args.mesh)
+        return MeshPipeline(mesh_shape=shape,
+                            devices=_mesh_devices(shape, device), **common)
+    return VDL2Pipeline(device=device, **common)
 
 
 def run_iq_file(args: argparse.Namespace, decoder: FrameDecoder,

@@ -1,7 +1,8 @@
 """Device-side candidate gating + noise-floor tracker: one step a block.
 
-Port of ``dumpvdl2_tpu/core/nf_gate.py`` (single-device entry points;
-the mesh step ``gate_nf_mesh`` is not ported yet).  The per-channel
+Port of ``dumpvdl2_tpu/core/nf_gate.py``: the single-device step
+``gate_nf_single``, the mesh step ``gate_nf_mesh`` and the EOF step
+``gate_only``.  The per-channel
 burst state machine of ``VDL2Pipeline._process_candidates`` -- busy
 windows, deferral, ppm gate, and the magnitude EMA / noise-floor
 tracker with its busy-pause and deferral-hold semantics -- runs on the
@@ -270,6 +271,129 @@ def gate_nf_single(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
                                 col_pos, st, dec, g["deferred_at"], end_rel)
     new_state = _finish_state(g, dec, nf_new)
     return _out(g, nf_read, new_state), new_state
+
+
+def mesh_columns(W: int, Tn: int, Ml: int, prepend_dec: int,
+                 col_from=None) -> tuple[int, int, np.ndarray | None]:
+    """The magnitude columns of a mesh block that the tracker consumes.
+
+    Time shard s's column jj (X = W // Tn columns a shard) lies at data
+    position s*Ml + 3*jj; since 3*(X - 1) < Ml the positions increase,
+    so the columns the JAX package drops, those re-covering prepended
+    samples (positions < ``prepend_dec``), are a prefix, whose length
+    ``n_drop`` is a host integer.  Returns ``(n0, base_rel, first)``:
+    the tracker sees the block's columns from ``n0`` on (n_drop unless
+    ``col_from`` asks for earlier ones), column j at position
+    base_rel + 3*(j - n0) (the JAX package's rank-based positions: column
+    n_drop sits at prepend_dec).  ``col_from`` (C,), where given, is each
+    channel's first data position to consume (past the block: none);
+    ``first`` (C,) is then the index, counted from n0, of each channel's
+    first consumed column, else None (every channel starts at n0)."""
+    X = max(W // Tn, 1)
+    j = np.arange(W)
+    pos = (j // X) * Ml + 3 * (j % X)
+    n_drop = int(np.searchsorted(pos, prepend_dec))
+    if col_from is None:
+        return n_drop, prepend_dec, None
+    first = np.searchsorted(pos, np.asarray(col_from, np.int64))
+    n0 = int(first.min())
+    return n0, prepend_dec - 3 * (n_drop - n0), first - n0
+
+
+def count_before(count, det_idx, stops):
+    """Per channel, how many of the first ``count`` (time-ordered) slots
+    of ``det_idx`` lie before ``stops`` (numpy or torch alike)."""
+    W = det_idx.shape[1]
+    if isinstance(det_idx, torch.Tensor):
+        slot = torch.arange(W, device=det_idx.device)[None, :]
+        return ((slot < count[:, None]) & (det_idx < stops[:, None])) \
+            .sum(dim=1).to(torch.int32)
+    slot = np.arange(W)[None, :]
+    return ((slot < count[:, None]) & (det_idx < stops[:, None])) \
+        .sum(axis=1).astype(np.int32)
+
+
+def gate_nf_mesh(count_tc, det, sync, dphi, pherr, sym_valid, inv_flat,
+                 hdr_rows, bits_rows, pwr3, Ml: int, prepend_dec: int,
+                 delta: int, state: dict, freqs, max_ppm: float,
+                 stops=None, col_from=None):
+    """Mesh-mode gate + NF step: the device-side candidate merge (a
+    stable sort of each channel's (Tn*K) slots, valid ones first, in
+    time order) followed by the single-device gate and tracker.
+
+    Candidate arrays are (Tn, C, K) as the sharded step gives them
+    (indices relative to the block's base); ``pwr3`` is (C, Tn*X).
+    ``inv_flat`` maps flat slot (t*C + c)*K + k to its L2 row, or is
+    None when the L2 batch was not compacted.  ``prepend_dec`` > 0 on
+    blocks that re-read a deferred burst: the columns re-covering the
+    prepended samples are dropped (a prefix, see :func:`mesh_columns`)
+    and the rest take the JAX package's rank-based positions
+    prepend_dec + 3*rank, so G1 and G2 run as in the single-device step
+    on the kept columns.
+
+    ``stops`` (C,) int32, where given, leaves each channel's candidates
+    at or after its stop unseen, and ``col_from`` (C,) sets where each
+    channel's tracker columns begin (see :func:`mesh_columns`; both from
+    core/mesh_pipeline.py: the JAX package has neither).
+
+    Returns (out, merged, new_state): ``merged`` carries the merged
+    per-channel candidate fields the host drain needs for metadata.
+    """
+    Tn, C, K = det.shape
+    dev = det.device
+    i32 = torch.int32
+    cnt = torch.clamp(count_tc, max=K)
+    valid = torch.arange(K, dtype=i32, device=dev)[None, None, :] \
+        < cnt[:, :, None]
+
+    def tr(a):
+        return a.movedim(0, 1).reshape(C, Tn * K)
+
+    order = torch.argsort((~tr(valid)).to(i32), dim=1, stable=True)
+
+    def take(a):
+        return torch.take_along_dim(tr(a), order, dim=1).contiguous()
+
+    flat = ((torch.arange(Tn, dtype=i32, device=dev)[:, None, None] * C
+             + torch.arange(C, dtype=i32, device=dev)[None, :, None]) * K
+            + torch.arange(K, dtype=i32, device=dev)[None, None, :])
+    flat_m = take(flat)
+    row_m = flat_m if inv_flat is None else \
+        inv_flat[flat_m.clamp(0, inv_flat.shape[0] - 1).long()].to(i32)
+    merged = {"count": cnt.sum(dim=0).to(i32), "det_idx": take(det),
+              "sync_idx": take(sync), "dphi": take(dphi),
+              "pherr": take(pherr), "sym_valid": take(sym_valid),
+              "l2_row": row_m}
+    if stops is not None:
+        merged["count"] = count_before(merged["count"], merged["det_idx"],
+                                       stops)
+    n0, base_rel, first = mesh_columns(pwr3.shape[1], Tn, int(Ml),
+                                       int(prepend_dec), col_from)
+    # gate_nf_single's step on the kept columns
+    st = _rebase(state, delta)
+    mags = mag(pwr3[:, n0:])
+    W = mags.shape[1]
+    end_rel = base_rel + 3 * W
+    sync_m = merged["sync_idx"].to(i32).contiguous()
+    g, bits, dec = _gate(merged["count"], merged["det_idx"], sync_m,
+                         merged["sym_valid"], merged["dphi"], row_m,
+                         hdr_rows, bits_rows, st, freqs, max_ppm, False,
+                         end_rel)
+    track_st = st
+    if first is not None:
+        # each channel's first consumed column bounds what the tracker
+        # reads (G1's ``low``) and what the ring appends (past the busy
+        # frontier)
+        col_low = torch.as_tensor((base_rel + 3 * first).astype(np.int32),
+                                  device=dev)
+        dec["low"] = torch.maximum(dec["low"], col_low)
+        track_st = {**st, "busy_until": torch.maximum(st["busy_until"],
+                                                      col_low)}
+    col_pos = base_rel + 3 * torch.arange(W, dtype=i32, device=dev)
+    nf_read, nf_new = _nf_track(g["verdicts"], sync_m, bits, mags, col_pos,
+                                track_st, dec, g["deferred_at"], end_rel)
+    new_state = _finish_state(g, dec, nf_new)
+    return _out(g, nf_read, new_state), merged, new_state
 
 
 def gate_only(count, det_idx, sync_idx, sym_valid, dphi, l2_row, hdr_rows,

@@ -1,7 +1,8 @@
 """Streaming receive pipeline: raw IQ blocks in, decoded frames out.
 
-Port of ``dumpvdl2_tpu/core/pipeline.py`` with device L2 (the JAX
-package's ``DUMPVDL2_TPU_L2=1``), in both of its gating modes:
+Port of ``dumpvdl2_tpu/core/pipeline.py``.  Device L2 (the JAX
+package's ``DUMPVDL2_TPU_L2=1``, the default here) runs in both of its
+gating modes:
 
 * each ``feed()`` channelizes one wideband block for all channels,
   detects preamble candidates (kernel K1 on CUDA), compacts the
@@ -15,6 +16,10 @@ package's ``DUMPVDL2_TPU_L2=1``), in both of its gating modes:
   every-3rd-sample magnitudes come to the host instead, and the host
   runs the candidate loop and the noise-floor tracker
   (``_process_candidates``),
+* host L2 (``device_l2=False``, ``DUMPVDL2_TPU_L2=0``): the device
+  slices every candidate's symbol window (``process_block``), the
+  symbols and powers come to the host, and the host decodes each burst
+  (``burst.header_info`` / ``burst.decode_burst``) and gates it;
 * a decimated-sample halo is carried between blocks so bursts that
   straddle a block boundary are re-detected and decoded once fully
   contained,
@@ -35,19 +40,21 @@ import scipy.signal
 import torch
 
 from ..app.stats import stats as _stats
-from ..burst import BurstResult, _result_from_batch
+from ..burst import BurstResult, _result_from_batch, decode_burst, header_info
 from ..constants import (HEADER_LEN, MAG_LP, NF_LP, SPS, SYMBOL_RATE,
                          SYNC_THRESHOLD)
 from ..dsp.chebyshev import fir_taps
 from ..dsp.demod import demod_window, find_and_slice, slice_windows
 from ..dsp.frontend import nco_dphi, prepare_taps, to_planar
 from ..fec.l2 import l2_decode_batch
+from ..fec.scramble import descramble
+from ..utils.bits import symbols_to_bits_msb
 from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
                            debug_print_buf_hex)
 from ..utils.devices import resolve_device
 from ..utils.fetch import coalesced_get
 from . import nf_gate
-from .device import process_block_detect
+from .device import process_block, process_block_detect
 from .gate_scan import (V_DEFER_DATA, V_EMPTY, V_EOF_TRUNC, V_HDR_REJECT,
                         V_L2_OVERFLOW, V_PPM_REJECT, V_SKIP, V_UNPROCESSED)
 from .metadata import DecodedFrame, MsgMetadata
@@ -179,6 +186,16 @@ class ChannelState:
         _stats.increment_per_channel(self.freq, counter, n)
 
 
+def resolve_device_l2(device_l2: bool | None = None) -> bool:
+    """Whether bursts are decoded batched on the device: ``device_l2``
+    if given, else on unless DUMPVDL2_TPU_L2 is "0".  (The JAX
+    package's "auto" picks host L2 on its CPU backend only because its
+    CPU device path is slow; here "auto" is device L2 everywhere.)"""
+    if device_l2 is not None:
+        return bool(device_l2)
+    return os.environ.get("DUMPVDL2_TPU_L2", "auto") != "0"
+
+
 def resolve_device_gate(device_gate: bool | None = None) -> bool:
     """Whether candidate gating and the noise floor run on the device:
     ``device_gate`` if given, else on unless DUMPVDL2_TPU_GATE is "0"
@@ -193,8 +210,10 @@ class VDL2Pipeline:
     ``sample_rate`` (an ``oversample`` multiple of 105 kHz).
 
     Runs on ``device`` ("cuda" by default); raises when no GPU is
-    present unless the caller asks for the CPU.  ``device_gate``
-    selects the gating mode (see :func:`resolve_device_gate`).
+    present unless the caller asks for the CPU.  ``device_l2`` selects
+    device or host burst decoding (see :func:`resolve_device_l2`),
+    ``device_gate`` the gating mode (see :func:`resolve_device_gate`);
+    host L2 implies host gating, as in the JAX package.
     ``step_ms``, when set to a dict, makes each block synchronize after
     its detect, L2 and (device-gated) gate steps and accumulate their
     wall milliseconds (plus the host's fetch-and-decode time) there: a
@@ -206,9 +225,13 @@ class VDL2Pipeline:
                  station_id: str | None = None,
                  max_candidates: int = 64,
                  device: str | torch.device | None = None,
-                 device_gate: bool | None = None):
+                 device_gate: bool | None = None,
+                 device_l2: bool | None = None):
         self.device = resolve_device(device)
-        self.use_device_gate = resolve_device_gate(device_gate)
+        self.use_device_l2 = resolve_device_l2(device_l2)
+        # the device gate consumes the device L2 results
+        self.use_device_gate = self.use_device_l2 \
+            and resolve_device_gate(device_gate)
         self.freqs = list(freqs)
         self.centerfreq = int(centerfreq)
         self.sample_rate = int(sample_rate)
@@ -351,14 +374,23 @@ class VDL2Pipeline:
 
     # ------------------------------------------------------------- candidates
     @staticmethod
-    def _candidate_fields(cands):
-        """Small candidate tensors the host needs (symbols and power
-        stay on the device: the L2 decode consumed them there)."""
-        return (cands.count, cands.det_idx, cands.sync_idx,
-                cands.dphi, cands.pherr, cands.sym_valid)
+    def _candidate_fields(cands, host_l2: bool = False):
+        """Candidate tensors the host needs.  With device L2 the
+        symbols and power stay on the device (the L2 decode consumed
+        them there); with host L2 (``host_l2``) they come too."""
+        small = (cands.count, cands.det_idx, cands.sync_idx,
+                 cands.dphi, cands.pherr, cands.sym_valid)
+        if host_l2:
+            return small + (cands.symbols, cands.power)
+        return small
 
     def _process_candidates(self, base: int, eof: bool, fetched,
-                            l2_np: dict, l2_map) -> list[DecodedFrame]:
+                            l2_np: dict | None, l2_map
+                            ) -> list[DecodedFrame]:
+        """The host candidate loop and noise-floor tracker.  ``l2_np``
+        is the fetched device L2 result, or None in host-L2 mode, where
+        ``fetched`` also carries the symbols and power and the host
+        decodes each burst."""
         out: list[DecodedFrame] = []
         self.last_deferred_min = None
 
@@ -381,7 +413,8 @@ class VDL2Pipeline:
             if ch.nf_hold is not None and det_g >= ch.nf_hold:
                 self._release_nf_hold(ch)
 
-        count, det_idx, sync_idx, dphi, pherr, sym_valid = fetched
+        count, det_idx, sync_idx, dphi, pherr, sym_valid = fetched[:6]
+        symbols, power = fetched[6:] if l2_np is None else (None, None)
         for c, ch in enumerate(self.channels):
             for k in range(int(count[c])):
                 if k >= det_idx.shape[1]:
@@ -411,8 +444,13 @@ class VDL2Pipeline:
                             "ch %d (%d Hz): sync at %d err=%.3f dphi=%.5f",
                             c, ch.freq, sp_g, float(pherr[c, k]),
                             float(dphi[c, k]))
-                res = _result_from_batch(l2_np, l2_index(c, k))
-                hdr_ok = res.ok or res.reason not in _HEADER_REASONS
+                if l2_np is not None:
+                    res = _result_from_batch(l2_np, l2_index(c, k))
+                    hdr_ok = res.ok or res.reason not in _HEADER_REASONS
+                else:
+                    res = header_info(descramble(symbols_to_bits_msb(
+                        symbols[c, k][:9])[:HEADER_LEN]))
+                    hdr_ok = res.ok
                 if not hdr_ok:
                     debug_print(D_BURST, "ch %d: header rejected (%s)",
                                 c, res.reason)
@@ -438,13 +476,17 @@ class VDL2Pipeline:
                     ch.next_det_min = det_g + 1
                     decided(ch, det_g)
                     continue
+                if l2_np is not None:
+                    frame_pwr = float(l2_np["frame_pwr"][l2_index(c, k)])
+                else:
+                    res = decode_burst(symbols_to_bits_msb(
+                        symbols[c, k][:total_syms])[:res.bits_consumed])
+                    frame_pwr = float(power[c, k, :total_syms].mean())
                 self._advance_noise_floor(c, sp_g)
                 ch.busy_until = sp_g + total_syms * SPS
                 ch.next_det_min = det_g + 1
                 decided(ch, det_g)
-                self._emit(out, ch, c, res,
-                           float(l2_np["frame_pwr"][l2_index(c, k)]),
-                           ch.mag_nf, ppm)
+                self._emit(out, ch, c, res, frame_pwr, ch.mag_nf, ppm)
         return out
 
     def _emit(self, out: list, ch: ChannelState, c: int, res: BurstResult,
@@ -626,19 +668,33 @@ class VDL2Pipeline:
 
         t0 = time.perf_counter() if self.step_ms is not None else 0.0
         H = self.hist.shape[2]
-        dets, phases, pwr, new_hist, new_carry, pwr3 = process_block_detect(
-            iq, self.taps, self.dphi, self.n0 & 0xFFFFFF, self.carry,
-            self.hist, self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
-            self.max_candidates, MAX_BURST_SYMS)
-        if self.step_ms is not None:
-            t0 = self._sync_time("detect", t0)
-        l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
-                               dets.dphi, self.max_candidates, MAX_BURST_SYMS)
-        if l2_map is not None:
-            l2_map = l2_map.reshape(len(self.channels), self.max_candidates)
-        del phases, pwr
-        if self.step_ms is not None:
-            t0 = self._sync_time("l2", t0)
+        if not self.use_device_l2:
+            # host L2: every candidate's window is sliced on the device
+            # and decoded on the host
+            dets, new_hist, new_carry, pwr3 = process_block(
+                iq, self.taps, self.dphi, self.n0 & 0xFFFFFF, self.carry,
+                self.hist, self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
+                self.max_candidates, MAX_BURST_SYMS)
+            l2 = l2_map = None
+            if self.step_ms is not None:
+                t0 = self._sync_time("detect", t0)
+        else:
+            dets, phases, pwr, new_hist, new_carry, pwr3 = \
+                process_block_detect(
+                    iq, self.taps, self.dphi, self.n0 & 0xFFFFFF,
+                    self.carry, self.hist, self.oversample, DEFAULT_HALO,
+                    SYNC_THRESHOLD, self.max_candidates, MAX_BURST_SYMS)
+            if self.step_ms is not None:
+                t0 = self._sync_time("detect", t0)
+            l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
+                                   dets.dphi, self.max_candidates,
+                                   MAX_BURST_SYMS)
+            if l2_map is not None:
+                l2_map = l2_map.reshape(len(self.channels),
+                                        self.max_candidates)
+            del phases, pwr
+            if self.step_ms is not None:
+                t0 = self._sync_time("l2", t0)
         self.carry = new_carry
         self.n0 = (self.n0 + iq.shape[1]) & 0xFFFFFF
 
@@ -649,9 +705,11 @@ class VDL2Pipeline:
         self.hist_base = base + M_total - keep
 
         # The queue holds no device tensors: the fetch future owns the
-        # only references, so each block's buffers are freed as soon as
-        # its transfer completes.  The fetch thread issues its copies
-        # on the same (default) stream, after this block's work.
+        # only references, so each block's buffers (with host L2 the
+        # (C, K, S) symbols and powers, ~0.46 GB a wideband block) are
+        # freed as soon as its transfer completes.  The fetch thread
+        # issues its copies on the same (default) stream, after this
+        # block's work.
         if self.use_device_gate:
             # the drain fetches verdicts and per-accept noise-floor
             # readings instead of the magnitude stream
@@ -662,7 +720,10 @@ class VDL2Pipeline:
                 (gout, self._candidate_fields(dets), l2, l2_map))
         else:
             fut = self._submit_fetch(
-                (mag16(pwr3), self._candidate_fields(dets), l2, l2_map))
+                (mag16(pwr3),
+                 self._candidate_fields(dets, not self.use_device_l2), l2,
+                 l2_map))
+        del dets
         self._pending_q.append((self.use_device_gate, fut, base, base + H))
         frames = []
         while len(self._pending_q) > 2 \
@@ -716,6 +777,11 @@ class VDL2Pipeline:
             return frames
         cands = find_and_slice(self.hist, SYNC_THRESHOLD,
                                self.max_candidates, MAX_BURST_SYMS)
+        if not self.use_device_l2:
+            fetched = coalesced_get(self._candidate_fields(cands, True))
+            frames.extend(self._process_candidates(
+                self.hist_base, True, fetched, None, None))
+            return frames
         l2, l2_map = launch_compacted_l2(cands.symbols, cands.power,
                                          cands.count, self.max_candidates)
         if l2_map is not None:

@@ -15,8 +15,10 @@
   run also pushes to a --statsd sink on a local UDP socket, which must
   receive the per-channel demod and decoder counters that
   ChannelState.bump exports.
-* Error paths: no input, a bad output spec, ``--output help``, inputs
-  not ported yet, and no GPU without ``--platform cpu``.
+* Error paths: no input, a bad output spec, ``--output help``, the SDR
+  inputs and ``--mesh`` without a radio or an input (each fails with
+  its own reason, none as "not ported yet"), and no GPU without
+  ``--platform cpu``.
 """
 import json
 import os
@@ -223,6 +225,10 @@ def iq_runs(tmp_path_factory):
     sink.bind(("127.0.0.1", 0))
     sink.settimeout(0.2)
     out = {}
+    # an earlier test in this process may have left either package's
+    # enrichment switched on (an aircraft database loaded)
+    jconfig.reset_config()
+    config.reset_config()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)        # as one_torch_thread, module-wide
     try:
@@ -354,9 +360,20 @@ def test_output_help(capsys):
 
 @pytest.mark.parametrize("flag", ["--rtlsdr", "--mirisdr", "--sdrplay",
                                   "--sdrplay3", "--soapysdr", "--mesh"])
-def test_inputs_not_ported_yet(flag, capsys):
+def test_inputs_not_ported_yet(flag, capsys, monkeypatch):
+    """Every input is ported: without a radio library (or, for
+    --mesh, without an input) each fails with its own reason."""
+    import sys as _sys
+    from dumpvdl2_tpu_torch.io import rtl, mirics, sdrplay, sdrplay3
+    monkeypatch.setattr(rtl, "load_librtlsdr", lambda: None)
+    monkeypatch.setattr(mirics, "load_libmirisdr", lambda: None)
+    monkeypatch.setattr(sdrplay, "load_libmirsdr", lambda: None)
+    monkeypatch.setattr(sdrplay3, "load_sdrplay_api", lambda: None)
+    monkeypatch.setitem(_sys.modules, "SoapySDR", None)
     assert cli.main(["--platform", "cpu", flag, "1x1"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" not in err
+    assert ("no input specified" if flag == "--mesh" else "not ") in err
 
 
 def test_no_gpu_without_platform_cpu(monkeypatch, capsys, tmp_path):

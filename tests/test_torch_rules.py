@@ -4,7 +4,9 @@
   ``chip_smoke.py`` imports loads neither ``jax`` nor ``dumpvdl2_tpu``
   (checked in a fresh interpreter, and statically in the sources).
 * An entry point built without ``device="cpu"`` on a machine with no
-  GPU raises instead of running on the CPU.
+  GPU raises instead of running on the CPU; so does a CUDA mesh with
+  fewer GPUs than shards, in the pipeline and in the CLI.
+* The CLI turns no input away as "not ported yet".
 * The one-transfer fetch keeps dtypes, shapes, bools and None leaves.
 """
 import ast
@@ -74,6 +76,46 @@ def test_entry_point_raises_without_gpu(monkeypatch):
         VDL2Pipeline(freqs, 136975000, 1050000, 10, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     VDL2Pipeline(freqs, 136975000, 1050000, 10, device="cpu")
+
+
+def test_cuda_mesh_needs_its_gpus(monkeypatch, capsys):
+    from dumpvdl2_tpu_torch.app import cli
+    from dumpvdl2_tpu_torch.core.mesh_pipeline import MeshPipeline
+    from dumpvdl2_tpu_torch.parallel.mesh import make_mesh
+    freqs = [136975000, 136950000]
+    with pytest.raises(ValueError, match="need 4 devices for a 2x2 mesh"):
+        MeshPipeline(freqs, 136975000, 1050000, 10, mesh_shape=(2, 2))
+    # a GPU present, but one where the mesh needs two
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 devices for a 1x2 mesh"):
+        make_mesh(1, 2)
+    monkeypatch.setattr(cli, "setup_signals", lambda: None)
+    assert cli.main(["--mesh", "1x2", "--iq-file", "none.s16"]) == 1
+    assert "need 2 devices for a 1x2 mesh, have 1" in capsys.readouterr().err
+    # the CPU, repeated, holds any mesh when the caller asks for it
+    mesh = make_mesh(2, 2, ["cpu"] * 4)
+    assert mesh.devices == [torch.device("cpu")] * 4
+
+
+@pytest.mark.parametrize("argv", [
+    ["--rtlsdr", "0"], ["--mirisdr", "0"], ["--sdrplay", "0"],
+    ["--sdrplay3", "0"], ["--soapysdr", "driver=none"],
+    ["--mesh", "1x2", "--raw-frames-file", "none.frames"]])
+def test_cli_ports_every_input(argv, capsys, monkeypatch):
+    from dumpvdl2_tpu_torch.app import cli
+    monkeypatch.setattr(cli, "setup_signals", lambda: None)
+    monkeypatch.setitem(sys.modules, "SoapySDR", None)
+    for mod, fn in (("rtl", "load_librtlsdr"), ("mirics", "load_libmirisdr"),
+                    ("sdrplay", "load_libmirsdr"),
+                    ("sdrplay3", "load_sdrplay_api")):
+        monkeypatch.setattr(f"dumpvdl2_tpu_torch.io.{mod}.{fn}",
+                            lambda: None)
+    try:
+        cli.main(["--platform", "cpu"] + argv)
+    except FileNotFoundError:
+        pass                                  # --mesh reached its input
+    assert "not ported yet" not in capsys.readouterr().err
 
 
 def _tree():
