@@ -65,7 +65,24 @@ Phases (each must pass; any failure exits non-zero):
    exact, nf_pwr_dbfs within 1e-4 dB); K1 launched once per shard a
    block plus once at EOF, G1 and G2 once a block plus once at EOF, no
    plain version run.  Realtime factor, peak memory, the blocks re-read
-   from the raw tail and the shards' devices are printed.
+   from the raw tail and the shards' devices are printed;
+10. the multi-process path (parallel/multihost.py): ``init_distributed()``
+   is a no-op without WORLD_SIZE; two ranks of
+   dumpvdl2_tpu_torch/tools/multihost_worker.py --scene wideband, each
+   on cuda:0 twice, join a gloo group on a localhost port and each runs
+   one (1, 2) row of the global (2, 2) mesh on 128 of the 256 channels
+   over the first two wideband blocks with carried state; each rank's
+   count, det_idx, sync_idx and sym_valid must equal its channel columns
+   of a single-process (2, 2) sharded step on cuda:0 repeated, exactly,
+   and its K1 launches must be Tn = 2 a block with no plain version run.
+   Each rank's peak device memory is printed.  A rank that fails, hangs
+   or exits non-zero fails the run;
+11. the stage profile (dumpvdl2_tpu_torch/tools/profile_wideband_e2e.py):
+   the gated single-device block staged three times (dispatch, device,
+   fetch with its bytes, host) and traced once (device busy and idle
+   share, kernel launches, top ops, idle gaps), its frames equal to
+   feed_planar's; a steady feed_planar block traced as it runs; the
+   mesh (1, 2) block's per-step split and trace.
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when
@@ -73,8 +90,10 @@ no CUDA device is present.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -89,9 +108,10 @@ from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
 from dumpvdl2_tpu_torch.dsp import sync_kernel
-from dumpvdl2_tpu_torch.dsp.frontend import to_planar
 from dumpvdl2_tpu_torch.io import rawframes
-from dumpvdl2_tpu_torch.sim import frame_with_fcs, synthesize_iq_raw
+from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
+                                    frame_with_fcs, synthesize_iq_raw,
+                                    wideband_scene)
 
 # The mesh is imported where it is used, so that the single-device
 # helpers here also drive a checkout of the port from before the mesh
@@ -136,8 +156,6 @@ G1_OPS_PER_CHANNEL = 15
 G2_OPS_PER_COLUMN = 6
 G2_OPS_PER_CROSSING = 5
 G2_OPS_PER_READ = 18
-WIDEBAND_BLOCK = 52428 * 80     # multiple of 80 nearest 2**22
-WIDEBAND_BLOCKS = 6             # the EOF flush is paid once per stream
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -723,38 +741,6 @@ def cli_on_card() -> dict:
     return {"records": len(recs), "seconds": dt}
 
 
-def wideband_scene(seed: int = 7):
-    """256-channel, 8.4 Msps span on the card: noise plus 24 bursts on
-    stride-4 channels, staggered over WIDEBAND_BLOCKS blocks."""
-    os_, C = 80, 256
-    fs = SYMBOL_RATE * SPS * os_
-    freqs = [int(CENTER - 25e3 * (i - C // 2)) for i in range(C)]
-    total = WIDEBAND_BLOCK * WIDEBAND_BLOCKS
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    sig = torch.randn((2, total), generator=gen, device="cuda") * 0.02
-    n_active = 24
-    active = rng.choice(np.arange(0, C, 4), size=n_active, replace=False)
-    payloads = [b"wideband e2e burst ch%03d payload " % ch * 4
-                for ch in active]
-    for k, (ch, payload) in enumerate(zip(active, payloads)):
-        burst = synthesize_iq_raw([payload], oversample=os_,
-                                  carrier_offset_hz=freqs[ch] - CENTER,
-                                  seed=int(ch))
-        off = 60000 + (k * (total - 2 * 60000 - burst.size)) // n_active
-        sig[:, off:off + burst.size] += torch.as_tensor(
-            to_planar(burst * 0.5), device="cuda")
-    want = [(frame_with_fcs(p), freqs[ch]) for ch, p in zip(active, payloads)]
-    spans = []            # (first raw sample, length, channel) per burst
-    for k, (ch, payload) in enumerate(zip(active, payloads)):
-        n = synthesize_iq_raw([payload], oversample=os_,
-                              carrier_offset_hz=freqs[ch] - CENTER,
-                              seed=int(ch)).size
-        spans.append((60000 + (k * (total - 2 * 60000 - n)) // n_active, n,
-                      int(ch)))
-    return freqs, int(fs), os_, sig, want, spans
-
-
 def run_wideband(freqs, fs, os_, sig, step_ms=None, device_gate=None):
     pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda",
                         device_gate=device_gate)
@@ -1017,6 +1003,128 @@ def mesh_phase(scene, single_frames) -> dict:
     return res
 
 
+def run_ranks(args: list[str], world: int, timeout: float) -> list[dict]:
+    """``world`` ranks of the multi-process worker with ``args``, joined
+    in a gloo group on a free localhost port: each rank's RESULT.  Any
+    rank that exits non-zero, prints no RESULT or outlives ``timeout``
+    fails the phase; every rank is stopped before this returns."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(REPO, "dumpvdl2_tpu_torch", "tools",
+                          "multihost_worker.py")
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                       RANK=str(rank), PYTHONPATH=REPO + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            procs.append(subprocess.Popen(
+                [sys.executable, worker, *args], env=env, cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        deadline = time.monotonic() + timeout
+        results = []
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not line:
+                raise AssertionError(f"rank {rank} exited {p.returncode}: "
+                                     f"{err[-3000:]}")
+            results.append(json.loads(line[0][len("RESULT "):]))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def multihost_phase(scene) -> dict:
+    """Two ranks on cuda:0, one (1, 2) row each of the (2, 2) mesh,
+    against the single-process (2, 2) sharded step over the same two
+    blocks: the integer candidate fields equal, K1 Tn times a block."""
+    from dumpvdl2_tpu_torch.core.mesh_pipeline import FWD_HALO
+    from dumpvdl2_tpu_torch.core.pipeline import MAX_BURST_SYMS
+    from dumpvdl2_tpu_torch.dsp.chebyshev import fir_taps
+    from dumpvdl2_tpu_torch.dsp.frontend import nco_dphi, prepare_taps
+    from dumpvdl2_tpu_torch.parallel import multihost
+    from dumpvdl2_tpu_torch.parallel.mesh import make_mesh
+    from dumpvdl2_tpu_torch.parallel.sharded import (init_sharded_state,
+                                                     make_sharded_step)
+    if multihost.init_distributed() is not False:
+        raise AssertionError("init_distributed() in one process did not "
+                             "return False")
+    freqs, fs, os_, sig, _, _ = scene
+    cn, tn, n_blocks = 2, 2, 2
+    t0 = time.perf_counter()
+    ranks = run_ranks(["--scene", "wideband", "--device", "cuda",
+                       "--local-devices", "cuda:0,cuda:0"], 2, 600)
+    dt = time.perf_counter() - t0
+
+    mesh = make_mesh(cn, tn, ["cuda:0"] * (cn * tn))
+    taps = torch.as_tensor(prepare_taps(fir_taps(fs), os_), device="cuda")
+    dphi = torch.as_tensor(np.array([nco_dphi(CENTER, f, fs) for f in freqs],
+                                    np.uint32).astype(np.int64),
+                           device="cuda")
+    step = make_sharded_step(mesh, oversample=os_, fwd_halo=FWD_HALO,
+                             max_candidates=64, max_symbols=MAX_BURST_SYMS)
+    state = init_sharded_state(mesh, len(freqs), taps.shape[0])
+    full = []
+    for b in range(n_blocks):
+        # contiguous, as each rank's distribute_block gives it
+        block = sig[:, b * WIDEBAND_BLOCK:(b + 1) * WIDEBAND_BLOCK]
+        cands, _, state = step(block.contiguous(), taps, dphi, state)
+        full.append(multihost.gather_candidates(cands))
+    res = {"seconds": dt, "ranks": []}
+    for r in ranks:
+        lo, hi = r["channels"]
+        label = f"multihost rank {r['process_index']}"
+        if (r["process_count"], r["rows"], hi - lo) != (2, 1, 128):
+            raise AssertionError(f"{label}: world {r['process_count']}, "
+                                 f"rows {r['rows']}, channels {lo}..{hi}")
+        for f in ("count", "det_idx", "sync_idx", "sym_valid"):
+            got = np.asarray(r[f])
+            want = np.stack([blk[f][:, lo:hi] for blk in full])
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = (got != want).sum() if got.shape == want.shape \
+                    else f"shape {got.shape} against {want.shape}"
+                raise AssertionError(f"{label}: {f} differs from the "
+                                     f"single-process (2, 2) run: {bad}")
+        if r["k1_launches"] != tn * n_blocks or r["k1_plain_calls"]:
+            raise AssertionError(f"{label}: K1 launched {r['k1_launches']} "
+                                 f"times (expected {tn * n_blocks}), plain "
+                                 f"version {r['k1_plain_calls']} times")
+        log(f"{label}: channels {lo}..{hi - 1} on a (1, {tn}) row of the "
+            f"({cn}, {tn}) mesh, count/det_idx/sync_idx/sym_valid equal to "
+            f"the single-process run over {n_blocks} blocks "
+            f"({int(np.asarray(r['count']).sum())} candidates); K1 "
+            f"launches {r['k1_launches']}, plain 0; peak device memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB; {r['seconds']:.2f} s "
+            f"in the rank")
+        res["ranks"].append({k: r[k] for k in (
+            "process_index", "channels", "k1_launches", "peak_bytes",
+            "seconds")})
+    log(f"multihost: 2 gloo ranks on cuda:0 in {dt:.2f} s with start-up")
+    return res
+
+
+def profile_phase() -> dict:
+    """The stage profile of the gated single-device block and the mesh
+    (1, 2) block on the card (it raises if its staged frames differ from
+    feed_planar's)."""
+    spec = importlib.util.spec_from_file_location(
+        "profile_wideband_e2e", os.path.join(
+            REPO, "dumpvdl2_tpu_torch", "tools", "profile_wideband_e2e.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    recs = tool.run("cuda", blocks=3, mesh_devices=mesh_devices((1, 2)))
+    for line in tool.summary(recs):
+        log(f"profile: {line}")
+    return {"records": recs}
+
+
 def reset_launches() -> None:
     sync_kernel.launches = 0
     for k in gate_kernel.launches:
@@ -1141,6 +1249,8 @@ def main() -> int:
     cli = cli_on_card()
     host_l2 = host_l2_phase(scene)
     mesh = mesh_phase(scene, gated_frames)
+    multi = multihost_phase(scene)
+    prof = profile_phase()
 
     def entry(name, source, replaces, t, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -1162,6 +1272,7 @@ def main() -> int:
     log(json.dumps({"wideband_gated": wb, "wideband_host_gated": wb_host,
                     "modes_max_d_nf_db": d_nf, "vector": vec, "cli": cli,
                     "host_l2": host_l2, "mesh": mesh,
+                    "multihost": multi, "profile": prof,
                     "k1": k1_main, "g1": g1, "g2": g2, "card": card}))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -666,6 +666,33 @@ class VDL2Pipeline:
         if iq.shape[1] == 0:
             return self.finish() if eof else []
 
+        # The queue holds no device tensors: the fetch future owns the
+        # only references, so each block's buffers (with host L2 the
+        # (C, K, S) symbols and powers, ~0.46 GB a wideband block) are
+        # freed as soon as its transfer completes.  The fetch thread
+        # issues its copies on the same (default) stream, after this
+        # block's work.
+        tree, base, nf_base = self._dispatch_block(iq)
+        t0 = time.perf_counter() if self.step_ms is not None else 0.0
+        fut = self._submit_fetch(tree)
+        del tree
+        self._pending_q.append((self.use_device_gate, fut, base, nf_base))
+        frames = []
+        while len(self._pending_q) > 2 \
+                or (self._pending_q and self._pending_q[0][1].done()):
+            frames.extend(self._drain_oldest())
+        if self.step_ms is not None:
+            frames.extend(self._drain_pending())
+            self._sync_time("fetch_host", t0)
+        if eof:
+            frames.extend(self.finish())
+        return frames
+
+    def _dispatch_block(self, iq: torch.Tensor):
+        """Enqueue one block's device work (detection, L2 and, gated,
+        the gate) and advance the carried stream state; no wait but
+        under ``step_ms``.  Returns the tree to fetch for the drain, the
+        block's base and its noise-floor base."""
         t0 = time.perf_counter() if self.step_ms is not None else 0.0
         H = self.hist.shape[2]
         if not self.use_device_l2:
@@ -704,37 +731,17 @@ class VDL2Pipeline:
         self.hist = new_hist
         self.hist_base = base + M_total - keep
 
-        # The queue holds no device tensors: the fetch future owns the
-        # only references, so each block's buffers (with host L2 the
-        # (C, K, S) symbols and powers, ~0.46 GB a wideband block) are
-        # freed as soon as its transfer completes.  The fetch thread
-        # issues its copies on the same (default) stream, after this
-        # block's work.
         if self.use_device_gate:
             # the drain fetches verdicts and per-accept noise-floor
             # readings instead of the magnitude stream
             gout = self._dispatch_gate(dets, l2, l2_map, pwr3, base, H)
             if self.step_ms is not None:
-                t0 = self._sync_time("gate", t0)
-            fut = self._submit_fetch(
-                (gout, self._candidate_fields(dets), l2, l2_map))
-        else:
-            fut = self._submit_fetch(
-                (mag16(pwr3),
+                self._sync_time("gate", t0)
+            return ((gout, self._candidate_fields(dets), l2, l2_map),
+                    base, base + H)
+        return ((mag16(pwr3),
                  self._candidate_fields(dets, not self.use_device_l2), l2,
-                 l2_map))
-        del dets
-        self._pending_q.append((self.use_device_gate, fut, base, base + H))
-        frames = []
-        while len(self._pending_q) > 2 \
-                or (self._pending_q and self._pending_q[0][1].done()):
-            frames.extend(self._drain_oldest())
-        if self.step_ms is not None:
-            frames.extend(self._drain_pending())
-            self._sync_time("fetch_host", t0)
-        if eof:
-            frames.extend(self.finish())
-        return frames
+                 l2_map), base, base + H)
 
     def _submit_fetch(self, tree):
         if self._fetch_pool is None:

@@ -9,6 +9,7 @@ generate load for benchmarks.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .constants import (ARITY, BPS, GRAYCODE, HDRFECLEN, HEADER_LEN,
                         PREAMBLE_PHASE_UNITS, RS_K, RS_N, SPS, TRLEN)
@@ -17,6 +18,7 @@ from .fec.header import syndrome_of
 from .fec.interleave import _fill_order, burst_geometry, get_fec_octetcount
 from .fec.scramble import PRBS
 from .link.crc import crc16_ccitt
+from .dsp.frontend import to_planar
 from .utils.bits import symbols_to_bits_msb, unpack_lsb
 
 
@@ -202,3 +204,41 @@ def synthesize_iq(frames: list[bytes], fs_decimated: float = SPS * 10500.0,
     noise = (rng.standard_normal(sig.size) + 1j * rng.standard_normal(sig.size))
     sig = sig + noise * np.sqrt(npow / 2)
     return sig.astype(np.complex64)
+
+
+# The wideband scene: 256 channels 25 kHz apart at oversample 80
+# (8.4 Msps), in blocks of the multiple of 80 nearest 2**22 samples.
+WIDEBAND_CENTER = 136.975e6
+WIDEBAND_BLOCK = 52428 * 80
+WIDEBAND_BLOCKS = 6
+
+
+def wideband_scene(seed: int = 7, device="cuda"):
+    """The 256-channel, 8.4 Msps span: noise plus 24 bursts on stride-4
+    channels, staggered over WIDEBAND_BLOCKS blocks, made on ``device``
+    from ``seed``.  Returns (freqs, fs, oversample, planar (2, N)
+    float32 signal, [(frame with FCS, freq)] a burst, [(first raw
+    sample, length, channel)] a burst)."""
+    from .constants import SYMBOL_RATE
+    os_, C = 80, 256
+    fs = SYMBOL_RATE * SPS * os_
+    freqs = [int(WIDEBAND_CENTER - 25e3 * (i - C // 2)) for i in range(C)]
+    total = WIDEBAND_BLOCK * WIDEBAND_BLOCKS
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sig = torch.randn((2, total), generator=gen, device=device) * 0.02
+    n_active = 24
+    active = rng.choice(np.arange(0, C, 4), size=n_active, replace=False)
+    payloads = [b"wideband e2e burst ch%03d payload " % ch * 4
+                for ch in active]
+    spans = []
+    for k, (ch, payload) in enumerate(zip(active, payloads)):
+        burst = synthesize_iq_raw([payload], oversample=os_,
+                                  carrier_offset_hz=freqs[ch]
+                                  - WIDEBAND_CENTER, seed=int(ch))
+        off = 60000 + (k * (total - 2 * 60000 - burst.size)) // n_active
+        sig[:, off:off + burst.size] += torch.as_tensor(
+            to_planar(burst * 0.5), device=device)
+        spans.append((off, burst.size, int(ch)))
+    want = [(frame_with_fcs(p), freqs[ch]) for ch, p in zip(active, payloads)]
+    return freqs, int(fs), os_, sig, want, spans
