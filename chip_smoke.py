@@ -7,7 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (each must pass; any failure exits non-zero):
 
 1. build: compile every kernel in dumpvdl2_tpu_torch/csrc (one nvcc per
-   source, in parallel) and print the card's name and power limit;
+   source, in parallel) and the native host library
+   (dumpvdl2_tpu_torch/native/l2host.c, with the system C compiler),
+   and print the card's name and power limit;
 2. K1 (the sync-metric CUDA kernel) against its plain PyTorch version on
    the card: random phases at the wideband main-path shape (256, 108 844)
    and at ragged shapes (rows of every length mod 4, tile edges, 70 000
@@ -36,7 +38,9 @@ Phases (each must pass; any failure exits non-zero):
    samples with 24 bursts on stride-4 channels through feed_planar +
    finish; all 24 payloads must decode; K1, G1 and G2 must each have
    launched 7 times on that run (6 blocks + EOF), and no plain version
-   of a gate kernel may have run.  Prints the sustained ingest rate, the realtime
+   of a gate kernel may have run; the native library's unstuffing must
+   have been called on that run and the Python spec (_frames_py) never.
+   Prints the sustained ingest rate, the realtime
    factor, the per-block step breakdown, the finish() time and peak
    device memory;
 6. the host-gated path (device_gate=False) on the same scene: all its
@@ -82,7 +86,14 @@ Phases (each must pass; any failure exits non-zero):
    fetch with its bytes, host) and traced once (device busy and idle
    share, kernel launches, top ops, idle gaps), its frames equal to
    feed_planar's; a steady feed_planar block traced as it runs; the
-   mesh (1, 2) block's per-step split and trace.
+   mesh (1, 2) block's per-step split and trace;
+12. the host library (dumpvdl2_tpu_torch/native): on every burst
+   stream the gated wideband run unstuffs, and on 2 000 seeded fuzz
+   streams, the C unstuffing and FCS equal the Python spec's exactly
+   (frames, error, order, CRC); the gated run's frames written as a
+   raw-frame archive decode to equal DecodedFrames through the C parser
+   and the Python spec; the unstuff + FCS milliseconds a block with
+   each; the library's call counts.
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when
@@ -90,7 +101,9 @@ no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import socket
@@ -102,13 +115,14 @@ import time
 import numpy as np
 import torch
 
-from dumpvdl2_tpu_torch import kernels
+from dumpvdl2_tpu_torch import burst, kernels, native
 from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE, SYNC_THRESHOLD
 from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
 from dumpvdl2_tpu_torch.dsp import sync_kernel
 from dumpvdl2_tpu_torch.io import rawframes
+from dumpvdl2_tpu_torch.link import crc, unstuff
 from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
                                     frame_with_fcs, synthesize_iq_raw,
                                     wideband_scene)
@@ -1129,6 +1143,8 @@ def reset_launches() -> None:
     sync_kernel.launches = 0
     for k in gate_kernel.launches:
         gate_kernel.launches[k] = 0
+    for k in native.calls:
+        native.calls[k] = 0
 
 
 # The gate kernels' plain versions and their stages: none may run on
@@ -1171,7 +1187,9 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain_calls: dict = {}
+    spec_calls: dict = {}
     restore = count_calls(gate_kernel, GATE_PLAIN, plain_calls)
+    restore_spec = count_calls(unstuff, ("_frames_py",), spec_calls)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -1179,8 +1197,10 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
         dt = time.perf_counter() - t0
         launches = {"sync_error_metric": sync_kernel.launches,
                     **gate_kernel.launches}
+        native_calls = dict(native.calls)
     finally:
         restore()
+        restore_spec()
     peak = torch.cuda.max_memory_allocated()
     if any(plain_calls.values()):
         raise AssertionError(f"wideband {mode}: plain versions of the gate "
@@ -1194,9 +1214,14 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
                              f"{missing[0]}")
     n = WIDEBAND_BLOCK * WIDEBAND_BLOCKS
     msps = n / dt / 1e6
+    if not native_calls["l2h_unstuff_frames"] or spec_calls["_frames_py"]:
+        raise AssertionError(f"wideband {mode}: frames were not unstuffed "
+                             f"by the native library alone: {native_calls}, "
+                             f"{spec_calls}")
     log(f"wideband {mode}: {len(want)}/{len(want)} payloads decoded "
         f"({len(frames)} frames), kernel launches on this run: {launches}; "
-        f"plain gate calls {plain_calls}")
+        f"plain gate calls {plain_calls}; native library calls "
+        f"{native_calls}, Python spec calls {spec_calls}")
     log(f"wideband {mode}: {n} samples in {dt:.4f} s -> {msps:.3f} "
         f"Msamples/s sustained, realtime factor {msps / (fs / 1e6):.3f} "
         f"against {fs / 1e6} Msps")
@@ -1212,7 +1237,153 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     return launches, frames, {"msamples_per_s": msps,
                               "realtime_factor": msps / (fs / 1e6),
                               "peak_bytes": peak, "per_block_ms": per_block,
-                              "finish_ms": finish_ms}
+                              "finish_ms": finish_ms,
+                              "native_calls": native_calls,
+                              "spec_calls": spec_calls}
+
+
+@contextlib.contextmanager
+def python_spec():
+    """Within the block, the host library's three wrappers (unstuffing,
+    the FCS, the raw-frame parse) run their pure-Python spec, as with
+    DUMPVDL2_TPU_NATIVE=0, and must not call the library; it is back
+    after the block."""
+    crc._lib()                  # resolve the wrappers' handles first
+    rawframes._native()
+    saved = (native._lib, crc._CRC_FN, rawframes._NATIVE_LIB)
+    calls = dict(native.calls)
+    native._lib = crc._CRC_FN = rawframes._NATIVE_LIB = None
+    try:
+        yield
+    finally:
+        native._lib, crc._CRC_FN, rawframes._NATIVE_LIB = saved
+    if native.calls != calls:
+        raise AssertionError(f"host library: the Python spec called the "
+                             f"library: {native.calls} against {calls}")
+
+
+def unstuff_fcs(streams: list) -> list:
+    """Each stream's (frames, "unstuff" or None, CRC of each frame)
+    through frames_from_bits and crc16_ccitt."""
+    out = []
+    for bits in streams:
+        frames, err = [], None
+        try:
+            for f in unstuff.frames_from_bits(bits):
+                frames.append(np.packbits(f, bitorder="little").tobytes())
+        except unstuff.UnstuffError:
+            err = "unstuff"
+        out.append((frames, err, [crc.crc16_ccitt(f) for f in frames]))
+    return out
+
+
+def fuzz_streams(n: int, seed: int) -> list:
+    """Seeded random bit streams with flags and runs of seven ones
+    written in (tests/test_native.py's fuzz)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(0, 300))
+        bits = rng.integers(0, 2, m, dtype=np.uint8)
+        for _ in range(int(rng.integers(0, 5))):
+            p = int(rng.integers(0, max(m - 8, 1)))
+            bits[p:p + 7] = rng.choice(
+                [np.array([0, 1, 1, 1, 1, 1, 1]),
+                 np.array([1, 1, 1, 1, 1, 1, 0])])[:max(0, m - p)]
+        out.append(bits)
+    return out
+
+
+def decoded_rows(frames) -> list:
+    return [(bytes(f.frame),) + tuple(
+        getattr(f.metadata, k) for k in (
+            "version", "station_id", "freq", "datalen_octets",
+            "synd_weight", "num_fec_corrections", "idx", "frame_pwr_dbfs",
+            "nf_pwr_dbfs", "ppm_error", "burst_timestamp"))
+        for f in frames]
+
+
+def host_library_phase(scene, gated_frames, lib_build: dict) -> dict:
+    """The native host library against its Python spec on the gated
+    wideband run's burst streams, on fuzz streams and on the run's
+    frames as a raw-frame archive; unstuff + FCS ms a block with each."""
+    freqs, fs, os_, sig, _, _ = scene
+    streams: list = []
+    orig = burst.frames_from_bits
+
+    def recorded(bits):
+        streams.append(np.array(bits, np.uint8))
+        return orig(bits)
+
+    burst.frames_from_bits = recorded
+    try:
+        frames = run_wideband(freqs, fs, os_, sig)
+    finally:
+        burst.frames_from_bits = orig
+    if sorted(bytes(f.frame) for f in frames) != \
+            sorted(bytes(f.frame) for f in gated_frames):
+        raise AssertionError("host library: the recorded run's frames "
+                             "differ from the gated run's")
+
+    res = {"build": lib_build, "streams": len(streams)}
+    fuzz = fuzz_streams(2000, seed=12)
+    reset_launches()
+    c_run, c_fuzz = unstuff_fcs(streams), unstuff_fcs(fuzz)
+    with python_spec():
+        py_run, py_fuzz = unstuff_fcs(streams), unstuff_fcs(fuzz)
+    for label, c, py in (("run", c_run, py_run), ("fuzz", c_fuzz, py_fuzz)):
+        bad = [i for i, (a, b) in enumerate(zip(c, py)) if a != b]
+        if bad or len(c) != len(py):
+            raise AssertionError(f"host library: C and Python differ on "
+                                 f"{len(bad)} {label} streams, e.g. #{bad[:3]}")
+    n_frames = sum(len(r[0]) for r in c_run)
+    good = sum(x == crc.GOOD_FCS for r in c_run for x in r[2])
+    res.update(run_frames=n_frames, run_fcs_good=good,
+               fuzz_errors=sum(r[1] is not None for r in c_fuzz))
+    log(f"host library: {len(streams)} burst streams of the gated run "
+        f"({n_frames} frames, {good} with a good FCS) and 2000 fuzz "
+        f"streams ({res['fuzz_errors']} unstuffing errors): C and Python "
+        f"equal (frames, error, order, CRC)")
+
+    # the run's frames as a raw-frame archive, through both parsers
+    archive = b"".join(rawframes.frame_record(f.metadata, bytes(f.frame))
+                       for f in frames)
+    got = decoded_rows(rawframes.read_records(io.BytesIO(archive)))
+    calls = dict(native.calls)
+    with python_spec():
+        want = decoded_rows(rawframes.read_records(io.BytesIO(archive)))
+    if got != want or len(got) != len(frames):
+        raise AssertionError("host library: the archive decodes "
+                             "differently through C and Python")
+    if [r[0] for r in got] != [bytes(f.frame) for f in frames]:
+        raise AssertionError("host library: the archive's frames differ "
+                             "from the run's")
+    res["archive_records"] = len(got)
+    log(f"host library: the run's {len(got)} frames as a raw-frame archive "
+        f"({len(archive)} bytes) decode to equal DecodedFrames through the "
+        f"C parser and the Python spec")
+
+    # unstuff + FCS a block: the run's streams, each way, in turns
+    times: dict = {"c": [], "python": []}
+    for _ in range(5):
+        for way, path in (("c", contextlib.nullcontext),
+                          ("python", python_spec)):
+            t0 = time.perf_counter()
+            with path():
+                unstuff_fcs(streams)
+            times[way].append((time.perf_counter() - t0) * 1e3
+                              / WIDEBAND_BLOCKS)
+    res["unstuff_fcs_ms_per_block"] = times
+    res["calls"] = calls
+    if not all(calls.values()):
+        raise AssertionError(f"host library: an entry point was never "
+                             f"called: {calls}")
+    log(f"host library: unstuff + FCS ms a block ({len(streams)} streams "
+        f"over {WIDEBAND_BLOCKS} blocks), 5 turns: C "
+        f"{[round(t, 4) for t in times['c']]}, Python "
+        f"{[round(t, 4) for t in times['python']]}; library calls in this "
+        f"phase {calls}")
+    return res
 
 
 def main() -> int:
@@ -1225,6 +1396,12 @@ def main() -> int:
         log(f"build {name}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             log(f"  {line}")
+    lib_build = native.build()
+    log(f"build l2host: {lib_build['compiler'] or 'built already'}, "
+        f"{lib_build['seconds']:.2f} s -> {lib_build['path']}")
+    if native.load_l2host() is None:
+        raise AssertionError("the native host library is switched off "
+                             "(DUMPVDL2_TPU_NATIVE=0)")
     card = card_line()
     log(card)
 
@@ -1251,6 +1428,7 @@ def main() -> int:
     mesh = mesh_phase(scene, gated_frames)
     multi = multihost_phase(scene)
     prof = profile_phase()
+    host_lib = host_library_phase(scene, gated_frames, lib_build)
 
     def entry(name, source, replaces, t, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -1273,6 +1451,7 @@ def main() -> int:
                     "modes_max_d_nf_db": d_nf, "vector": vec, "cli": cli,
                     "host_l2": host_l2, "mesh": mesh,
                     "multihost": multi, "profile": prof,
+                    "host_library": host_lib,
                     "k1": k1_main, "g1": g1, "g2": g2, "card": card}))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -92,6 +92,10 @@ def _worker_main(worker_id: int, inq, outq, fmtr_specs, config_fields,
     reasm = ReasmContexts()
 
     from ..io.rawframes import decode_raw_frame
+    from ..native import load_l2host
+    # outside the per-record fence below: a worker that cannot load the
+    # native library dies here, loudly, instead of decoding in Python
+    load_l2host()
 
     while True:
         msg = inq.get()
@@ -162,6 +166,11 @@ class ParallelFrameDecoder:
             name = next(n for n, fd in FORMATTERS.items()
                         if fd is f.descriptor)
             fmtr_specs.append((name, f.intype))
+
+        # build the native library once, before the workers start (they
+        # load it; a failed build raises here)
+        from ..native import load_l2host
+        load_l2host()
 
         from dataclasses import fields
         config_fields = {fld.name: getattr(Config, fld.name)

@@ -11,6 +11,10 @@ Complex samples are planar float32 pairs (leading axis 2 = [re, im]).
 The NCO phase accumulator wraps modulo 2^24; PyTorch has no full
 uint32 arithmetic, so phases are computed in int64 and masked with
 ``& 0xFFFFFF`` (every product stays below 2^56, so this is exact).
+
+``mix_nco`` and ``mix_filter_decimate_impl`` keep the direct formulation
+(mix every channel at the input rate, then filter and decimate) as the
+oracle the channelizer is held to; no pipeline runs them.
 """
 from __future__ import annotations
 
@@ -59,6 +63,64 @@ def _nco_angle(idx: torch.Tensor, dphi: torch.Tensor) -> torch.Tensor:
     the int64 product exact."""
     phi = ((idx & _MASK24)[None, :] * dphi[:, None]) & _MASK24
     return phi.to(torch.float32) * _TWO_PI_OVER_2_24
+
+
+def mix_nco(iq: torch.Tensor, dphi: torch.Tensor, n0: int) -> torch.Tensor:
+    """24-bit fixed-point NCO downmix (demod.c:312-317,385).
+
+    ``iq``: (2, N) planar wideband samples whose first sample has
+    global index ``n0`` (wraps mod 2^24); ``dphi``: (C,) int64 per-channel
+    phase increments (uint32 values).  Returns (2, C, N) mixed samples.
+    """
+    n = n0 + torch.arange(iq.shape[1], dtype=torch.int64, device=iq.device)
+    angle = _nco_angle(n, dphi)
+    cosw, sinw = torch.cos(angle), torch.sin(angle)   # (C, N)
+    re, im = iq[0], iq[1]
+    # (re + j im) * (cos + j sin)
+    return torch.stack([re[None, :] * cosw - im[None, :] * sinw,
+                        im[None, :] * cosw + re[None, :] * sinw])
+
+
+def mix_filter_decimate_impl(iq: torch.Tensor, taps: torch.Tensor,
+                             dphi: torch.Tensor, n0: int,
+                             carry: torch.Tensor, oversample: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The direct NCO-mix front end: mix every channel at the input
+    rate, then filter and decimate.  No pipeline runs it; it is the
+    oracle that :func:`bandpass_channelize` is held to.
+
+    Args:
+      iq: (2, N) float32 planar wideband block, N % oversample == 0.
+      taps: (T,) float32 FIR taps, T % oversample == 0 (prepare_taps).
+      dphi: (C,) int64 per-channel 24-bit NCO phase increments.
+      n0: global index of iq[0] modulo 2^24.
+      carry: (2, C, T-1) float32 mixed-sample history from the previous
+        block (zeros at stream start).
+    Returns:
+      (decimated (2, C, N // oversample) float32, new_carry).
+    """
+    N = iq.shape[1]
+    T = taps.shape[0]
+    os_ = oversample
+    mixed = mix_nco(iq, dphi, n0)                      # (2, C, N)
+
+    z = torch.cat([carry, mixed], dim=2)               # (2, C, N + T - 1)
+    new_carry = z[:, :, z.shape[2] - (T - 1):] if T > 1 else z[:, :, :0]
+
+    # Polyphase convolution: output j (the first is filtered sample
+    # os-1) is y[j] = sum_t zs[os*j + t] * taps_rev[t], t in [0, T);
+    # splitting t = os*q + r makes the decimation phase r the
+    # convolution's input channel and q its window
+    C2 = 2 * z.shape[1]
+    Q = T // os_
+    zs = z[:, :, os_ - 1:]
+    frames_n = zs.shape[2] // os_
+    frames = zs[:, :, :frames_n * os_].reshape(C2, frames_n, os_) \
+        .transpose(1, 2)                               # (2C, os, I)
+    kernel = taps.flip(0).reshape(Q, os_).T[None]      # (1, os, Q)
+    dec = torch.nn.functional.conv1d(frames, kernel)[:, 0, :]
+    M = N // os_
+    return dec[:, :M].reshape(2, -1, M), new_carry
 
 
 def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,

@@ -17,6 +17,8 @@ from typing import Iterator
 
 import numpy as np
 
+from .. import native
+
 
 class UnstuffError(Exception):
     """Invalid bit-stuffing sequence."""
@@ -27,8 +29,37 @@ def frames_from_bits(bits: np.ndarray) -> Iterator[np.ndarray]:
 
     Raises :class:`UnstuffError` when an invalid sequence is hit; frames
     yielded before the error remain valid (the reference emits them too).
+
+    Runs the native implementation (native/l2host.c), built at first
+    use; the Python loop below is the executable spec, which only
+    DUMPVDL2_TPU_NATIVE=0 selects.
     """
+    lib = native.load_l2host()
+    if lib is not None:
+        yield from _frames_native(bits, lib)
+        return
     yield from _frames_py(bits)
+
+
+def _frames_native(bits: np.ndarray, lib) -> Iterator[np.ndarray]:
+    import ctypes
+    src = np.ascontiguousarray(bits, dtype=np.uint8)
+    n = src.size
+    out = np.empty(max(n, 1), np.uint8)
+    lens = np.zeros(64, np.int32)
+    err = ctypes.c_int32(0)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    native.calls["l2h_unstuff_frames"] += 1
+    nframes = lib.l2h_unstuff_frames(
+        src.ctypes.data_as(u8p), n, out.ctypes.data_as(u8p),
+        lens.ctypes.data_as(i32p), lens.size, ctypes.byref(err))
+    pos = 0
+    for i in range(nframes):
+        yield out[pos:pos + lens[i]].copy()
+        pos += lens[i]
+    if err.value:
+        raise UnstuffError("invalid bit stuffing sequence")
 
 
 def _frames_py(bits: np.ndarray) -> Iterator[np.ndarray]:

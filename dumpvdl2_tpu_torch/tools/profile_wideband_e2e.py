@@ -14,9 +14,13 @@ and again.  Two scenes:
     dispatch  host ms to enqueue detect, L2 and the gate, no sync
     device    the torch.cuda.synchronize() wait after the dispatch
     fetch     coalesced_get, with its bytes a part (gout, cand, l2, map)
-    host      _process_verdicts
-  and counts its frames.  These staged blocks are serialized: the
-  device waits through the fetch and the host step.  The staged
+    host      _process_verdicts, split into
+      frame_build  its calls of burst._result_from_batch (RS rows to
+                   octets, HDLC unstuffing through the native library),
+      host_rest    the rest (the loop over the channels' state mirrors
+                   and slots, the counters, the DecodedFrames)
+  and counts its frames and frame builds.  These staged blocks are
+  serialized: the device waits through the fetch and the host step.  The staged
   blocks' frames, with finish()'s, must equal those of feed_planar on
   a fresh pipeline of as many blocks; that run's steady blocks give
   feed_planar's own ms a block (dispatch overlapped with the drain of
@@ -134,15 +138,34 @@ def staged_block(pipe: VDL2Pipeline, planar: torch.Tensor):
     with record_function("fetch"):
         fetched = coalesced_get(tree)
     t3 = time.perf_counter()
-    with record_function("host"):
-        frames = pipe._process_verdicts(*fetched, base)
-    t4 = time.perf_counter()
+    # a bare clock around each frame build: a profiler annotation would
+    # add its own cost to each of the ~220 calls a wideband block
+    build = []
+    orig = pipeline._result_from_batch
+
+    def timed_build(*args):
+        tb = time.perf_counter()
+        try:
+            return orig(*args)
+        finally:
+            build.append((time.perf_counter() - tb) * 1e3)
+
+    pipeline._result_from_batch = timed_build
+    try:
+        with record_function("host"):
+            frames = pipe._process_verdicts(*fetched, base)
+        t4 = time.perf_counter()
+    finally:
+        pipeline._result_from_batch = orig
+    host_ms = (t4 - t3) * 1e3
     return {"dispatch_ms": (t1 - t0) * 1e3, "device_ms": (t2 - t1) * 1e3,
-            "fetch_ms": (t3 - t2) * 1e3, "host_ms": (t4 - t3) * 1e3,
+            "fetch_ms": (t3 - t2) * 1e3, "host_ms": host_ms,
+            "frame_build_ms": sum(build),
+            "host_rest_ms": host_ms - sum(build),
             "block_ms": (t4 - t0) * 1e3,
             "fetch_bytes": {p: _nbytes(a)
                             for p, a in zip(FETCH_PARTS, fetched)},
-            "frames": len(frames)}, frames
+            "frames": len(frames), "frame_builds": len(build)}, frames
 
 
 def traced(fn, devices):
@@ -382,7 +405,8 @@ class _Timers:
 def _single_timers(pipe: VDL2Pipeline, feed: bool) -> _Timers:
     """Annotate the single-device pipeline's steps for the profiler, no
     sync: detection, L2 and the gate; with ``feed`` also feed_planar's
-    dispatch, fetch (on the fetch thread), drain and host steps."""
+    dispatch, fetch (on the fetch thread), drain, host and frame-building
+    steps."""
     t = _Timers([pipe.device], sync=False)
     t.wrap(pipeline, "process_block_detect", "detect")
     t.wrap(pipeline, "l2_sliced", "l2")
@@ -392,6 +416,7 @@ def _single_timers(pipe: VDL2Pipeline, feed: bool) -> _Timers:
         t.wrap(pipeline, "coalesced_get", "fetch")
         t.wrap(pipe, "_drain_oldest", "drain")
         t.wrap(pipe, "_process_verdicts", "host")
+        t.wrap(pipeline, "_result_from_batch", "frame_build")
     return t
 
 
@@ -520,7 +545,9 @@ def summary(recs: list[dict]) -> list[str]:
                 f"{k[:-3]} {_fmt(r[k])}" for k in keys)
                 + (f"; fetch bytes {r['fetch_bytes']}"
                    if "fetch_bytes" in r else "")
-                + f"; frames {r['frames']}")
+                + f"; frames {r['frames']}"
+                + (f", frame builds {r['frame_builds']}"
+                   if "frame_builds" in r else ""))
         else:
             for key in ("feed_planar_block_ms", "untraced_block_ms"):
                 if key in r:

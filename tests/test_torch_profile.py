@@ -5,7 +5,8 @@ A shortened scene (8 channels at oversample 20, blocks of 15 000
 decimated samples, one staged block): the staged blocks, which drive
 the pipeline's own steps one by one, must decode exactly the frames that
 feed_planar decodes on a fresh pipeline of the same blocks (the tool
-raises otherwise); every stage and fetch part is timed or counted; the
+raises otherwise); every stage and fetch part is timed or counted, the
+host step split into its frame building and the rest; the
 traced feed_planar block carries the pipeline's stage annotations; the
 trace fields that need the card are null; the mesh (1, 2) scene runs on
 the CPU twice.  The trace reduction is checked on a made-up trace.
@@ -62,7 +63,7 @@ def test_feed_planar_trace_has_the_pipeline_stages(records):
         assert t["stage_ms"][key] > 0, key
     assert t["stage_ms"]["dispatch"] >= t["stage_ms"]["detect"]
     assert set(t["stage_ms"]) <= {"dispatch", "detect", "l2", "gate",
-                                  "fetch", "drain", "host"}
+                                  "fetch", "drain", "host", "frame_build"}
     assert all(v > 0 for v in t["stage_ms"].values())
 
 
@@ -72,8 +73,12 @@ def test_single_stages_and_fetch_bytes(records, rec):
     r = records[rec]
     st = r.get("traced_block", r)
     for key in ("dispatch_ms", "device_ms", "fetch_ms", "host_ms",
-                "block_ms"):
+                "frame_build_ms", "host_rest_ms", "block_ms"):
         assert st[key] > 0, key
+    # the host step is its frame building and the rest
+    assert st["frame_build_ms"] + st["host_rest_ms"] == \
+        pytest.approx(st["host_ms"])
+    assert st["frame_builds"] >= 1
     assert set(st["fetch_bytes"]) == {"gout", "cand", "l2", "map"}
     assert all(v > 0 for v in st["fetch_bytes"].values()), st["fetch_bytes"]
 
