@@ -29,48 +29,62 @@ Phases (each must pass; any failure exits non-zero):
    count and the crossing columns equal, the floats within rtol 1e-5,
    atol 1e-7.  Device (profiler) and wrapper-call times, the plain
    versions' times and the bounds;
-4. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
+4. L2H, L2D and RS (the L2 kernels, csrc/l2.cu) against their plain
+   PyTorch versions on the card, every integer and byte equal: the
+   wideband scene's real L2 inputs on the sliced path (l2_sliced,
+   rs_burst_cap) and at EOF (launch_compacted_l2), 24 000 RS rows of
+   sim.rs_fuzz (0-20 errors, erasures, zero syndromes, fec_octets 0-7
+   and -1), 384 symbol rows of sim.l2_fuzz (bursts of 1-9 RS blocks,
+   damaged bursts, noise) with and without the compaction, and the
+   vector's near-cap burst, which must decode through the kernels;
+   l2_decode_batch on the card equal to the CPU's; each kernel's device
+   (profiler) and wrapper-call times, its plain version's and its bound
+   at the sliced block's shapes;
+5. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
    back byte for byte on its channel (run twice, the second run timed);
-5. wideband main path, device-gated (the default): 256 channels at
+6. wideband main path, device-gated (the default): 256 channels at
    oversample 80 (8.4 Msps), six device-resident blocks of 4 194 240
    samples with 24 bursts on stride-4 channels through feed_planar +
-   finish; all 24 payloads must decode; K1, G1 and G2 must each have
-   launched 7 times on that run (6 blocks + EOF), and no plain version
-   of a gate kernel may have run; the native library's unstuffing must
-   have been called on that run and the Python spec (_frames_py) never.
-   Prints the sustained ingest rate, the realtime
-   factor, the per-block step breakdown, the finish() time and peak
-   device memory;
-6. the host-gated path (device_gate=False) on the same scene: all its
+   finish; all 24 payloads must decode; K1, G1, G2, L2H, L2D and RS
+   must each have launched 7 times on that run (6 blocks + EOF), and no
+   plain version of a gate or L2 kernel may have run; the native
+   library's unstuffing must have been called on that run and the
+   Python spec (_frames_py) never.  Prints the sustained ingest rate,
+   the realtime factor, the per-block step breakdown, the finish() time
+   and peak device memory;
+7. the host-gated path (device_gate=False) on the same scene: all its
    payloads must decode and its frames equal the gated run's (bytes and
-   freq exact, nf_pwr_dbfs within 1e-4 dB); its realtime factor and
-   breakdown beside the gated ones;
-7. the CLI on the card: the correctness vector written as an S16_LE file
+   freq exact, nf_pwr_dbfs within 1e-4 dB), L2H, L2D and RS must each
+   have launched and no plain version of an L2 kernel run; its realtime
+   factor and breakdown beside the gated ones;
+8. the CLI on the card: the correctness vector written as an S16_LE file
    and decoded by ``python3 -m dumpvdl2_tpu_torch`` (default platform,
    the GPU) in a subprocess; it must exit 0 and give one JSON record
    per burst on its frequency;
-8. host L2 (device_l2=False, host-gated): the correctness vector and the
+9. host L2 (device_l2=False, host-gated): the correctness vector and the
    first two blocks of the wideband scene; the frames must equal the
    device-L2 host-gated run's on the same span (bytes, freq and idx
    exact, nf_pwr_dbfs within 1e-4 dB) and every payload in the span must
    decode; wall times of both;
-9. G1 against its plain version on random merged slot grids,
+10. G1 against its plain version on random merged slot grids,
    K' = Tn*K = 128, 256 and 512; for each mesh shape, K1 against its
    plain version on every shard's phase plane of a real block ((256,
    H + Ml + F) at (1, 2), (128, H + Ml + F) at (2, 2); identical
-   detection masks) and G1 on that block's real merged (C, Tn*K) grid;
-   then the mesh path (MeshPipeline,
+   detection masks) and G1 on that block's real merged (C, Tn*K) grid,
+   and L2H, L2D and RS on the mesh's real L2 inputs (launch_compacted_l2
+   over every shard's slots, a block and at EOF); then the mesh path
+   (MeshPipeline,
    device-gated) on the whole wideband scene at mesh shapes (1, 2) and
    (2, 2), the shards on distinct GPUs where there are enough, else on
    cuda:0 repeated: 24/24 payloads, the
    frames equal to the single-device gated run's (bytes, freq and idx
    exact, nf_pwr_dbfs within 1e-4 dB); K1 launched once per shard a
-   block plus once at EOF, G1 and G2 once a block plus once at EOF, no
-   plain version run.  Realtime factor, peak memory, the blocks re-read
+   block plus once at EOF, G1, G2, L2H, L2D and RS once a block plus
+   once at EOF, no plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
-10. the multi-process path (parallel/multihost.py): ``init_distributed()``
+11. the multi-process path (parallel/multihost.py): ``init_distributed()``
    is a no-op without WORLD_SIZE; two ranks of
    dumpvdl2_tpu_torch/tools/multihost_worker.py --scene wideband, each
    on cuda:0 twice, join a gloo group on a localhost port and each runs
@@ -81,13 +95,13 @@ Phases (each must pass; any failure exits non-zero):
    and its K1 launches must be Tn = 2 a block with no plain version run.
    Each rank's peak device memory is printed.  A rank that fails, hangs
    or exits non-zero fails the run;
-11. the stage profile (dumpvdl2_tpu_torch/tools/profile_wideband_e2e.py):
+12. the stage profile (dumpvdl2_tpu_torch/tools/profile_wideband_e2e.py):
    the gated single-device block staged three times (dispatch, device,
    fetch with its bytes, host) and traced once (device busy and idle
    share, kernel launches, top ops, idle gaps), its frames equal to
    feed_planar's; a steady feed_planar block traced as it runs; the
    mesh (1, 2) block's per-step split and trace;
-12. the host library (dumpvdl2_tpu_torch/native): on every burst
+13. the host library (dumpvdl2_tpu_torch/native): on every burst
    stream the gated wideband run unstuffs, and on 2 000 seeded fuzz
    streams, the C unstuffing and FCS equal the Python spec's exactly
    (frames, error, order, CRC); the gated run's frames written as a
@@ -115,8 +129,9 @@ import time
 import numpy as np
 import torch
 
-from dumpvdl2_tpu_torch import burst, kernels, native
-from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE, SYNC_THRESHOLD
+from dumpvdl2_tpu_torch import burst, kernels, native, sim
+from dumpvdl2_tpu_torch.constants import (HEADER_LEN, SPS, SYMBOL_RATE,
+                                          SYNC_THRESHOLD)
 from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
@@ -127,9 +142,9 @@ from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
                                     frame_with_fcs, synthesize_iq_raw,
                                     wideband_scene)
 
-# The mesh is imported where it is used, so that the single-device
-# helpers here also drive a checkout of the port from before the mesh
-# (dumpvdl2_tpu_torch/tools/e2e_turns.py).
+# The mesh and the L2 kernels' modules are imported where they are
+# used, so that the single-device helpers here also drive a checkout of
+# the port from before them (dumpvdl2_tpu_torch/tools/e2e_turns.py).
 
 CENTER = 136.975e6
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
@@ -170,6 +185,23 @@ G1_OPS_PER_CHANNEL = 15
 G2_OPS_PER_COLUMN = 6
 G2_OPS_PER_CROSSING = 5
 G2_OPS_PER_READ = 18
+# L2 kernels' least instructions.  L2H per burst (25 bit extracts and
+# merges, 5 parity folds, the bit reversal and the geometry).  L2D per
+# octet it packs (8 bit extracts and merges) and per cell of an accepted
+# burst's table (the index arithmetic, a compare, a select, the store).
+# RS per syndrome term (a table lookup and an XOR, 6 a position of a row
+# with parity) and per Chien and Forney term (7 a position of a row with
+# a nonzero syndrome).  All three move more bytes than they issue
+# instructions.
+L2H_OPS_PER_BURST = 60
+L2D_OPS_PER_OCTET = 16
+L2D_OPS_PER_CELL = 6
+RS_OPS_PER_TERM = 2
+L2_KERNELS = ("l2_header", "l2_deinterleave", "rs_verify")
+# The L2 kernels' plain versions and their stages: none may run on the
+# card's main path.
+L2_PLAIN = ("l2_header_plain", "l2_deinterleave_plain", "rs_verify_plain",
+            "rs_decode_batch", "_clear_bits")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -653,6 +685,275 @@ def time_gate(call, plain, kernel: str) -> dict:
             "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5)}
 
 
+def l2_modules():
+    """fec/l2.py and fec/l2_kernel.py of the checkout under test."""
+    from dumpvdl2_tpu_torch.fec import l2 as l2_step
+    from dumpvdl2_tpu_torch.fec import l2_kernel
+    return l2_step, l2_kernel
+
+
+def l2h_bound(B: int, sms: int, clock_hz: float) -> dict:
+    """Least time for L2H on B bursts: it reads each burst's first 9
+    symbols and writes 8 int32 results and 4 flags a burst."""
+    return _bound((9 + 8 * 4 + 4) * B, L2H_OPS_PER_BURST * B, sms,
+                  clock_hz)
+
+
+def l2d_bound(args: tuple, sms: int, clock_hz: float) -> dict:
+    """Least time for L2D on these inputs: each accepted burst's symbols
+    up to its last parity octet, the geometry (17 bytes a burst, 8 more
+    for the row index), the (Bp, 9, 255) table and (Bp, 9) parity counts
+    out; the octets those bursts pack and their table cells."""
+    _, l2_kernel = l2_modules()
+    symbols, sel, hdr_ok, num_blocks, _ll, lf, doct = args
+    rows = torch.arange(symbols.shape[0], device=symbols.device) \
+        if sel is None else sel
+    nb = torch.where(hdr_ok, num_blocks, 0)[rows].to(torch.int64)
+    acc = nb > 0
+    octets = torch.where(acc, doct[rows] + (nb - 1) * 6 + lf[rows], 0)
+    syms = torch.where(acc, (HEADER_LEN + 8 * octets + 2) // 3, 0)
+    Bp = rows.shape[0]
+    n_acc = int(acc.sum().item())
+    nbytes = int(syms.sum().item()) + (17 + (sel is not None) * 8) * Bp \
+        + (l2_kernel.MAX_BLOCKS * (255 + 4)) * Bp
+    ops = L2D_OPS_PER_OCTET * int(octets.sum().item()) \
+        + L2D_OPS_PER_CELL * l2_kernel.MAX_BLOCKS * 255 * n_acc
+    return _bound(nbytes, ops, sms, clock_hz)
+
+
+def rs_bound(fec: torch.Tensor, count: torch.Tensor, sms: int,
+             clock_hz: float) -> dict:
+    """Least time for RS on these rows: each row in and out (255 bytes
+    and its parity count; 255 bytes and its count), 6 syndrome terms a
+    position of a row with parity, 7 Chien and Forney terms a position
+    of a row with a nonzero syndrome (count != 0)."""
+    N = fec.shape[0]
+    with_parity = int((fec != 0).sum().item())
+    nonzero = int(((fec != 0) & (count != 0)).sum().item())
+    ops = RS_OPS_PER_TERM * 255 * (6 * with_parity + 7 * nonzero)
+    return _bound((2 * 255 + 8) * N, ops, sms, clock_hz)
+
+
+def compare_l2h(symbols: torch.Tensor, label: str) -> dict:
+    """L2H against its plain version: every field equal, dtypes too."""
+    _, l2_kernel = l2_modules()
+    k = l2_kernel.l2_header_cuda(symbols)
+    p = l2_kernel.l2_header_plain(symbols)
+    torch.cuda.synchronize()
+    for key, want in p.items():
+        if k[key].dtype != want.dtype or not torch.equal(k[key], want):
+            bad = (k[key] != want).sum().item() \
+                if k[key].shape == want.shape else "shape"
+            raise AssertionError(f"L2H differs from its plain version on "
+                                 f"{label}: {key} ({bad} rows)")
+    return {"rows": symbols.shape[0],
+            "hdr_ok": int(p["hdr_ok"].sum().item())}
+
+
+def compare_l2d(args: tuple, label: str) -> dict:
+    """L2D against its plain version: table and parity counts equal."""
+    _, l2_kernel = l2_modules()
+    tk, fk = l2_kernel.l2_deinterleave_cuda(*args)
+    tp, fp = l2_kernel.l2_deinterleave_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in (("table", tk, tp), ("fec_row", fk, fp)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"L2D differs from its plain version on "
+                                 f"{label}: {name}")
+    return {"rows": tk.shape[0],
+            "rs_rows": int((fp != 0).sum().item())}
+
+
+def compare_rs(blocks: torch.Tensor, fec: torch.Tensor, label: str
+               ) -> dict:
+    """RS against its plain version: corrected bytes and counts equal.
+    Returns the rows by count (-1 failure, 0 none or skipped, n
+    corrected)."""
+    _, l2_kernel = l2_modules()
+    ok, ck = l2_kernel.rs_verify_cuda(blocks, fec)
+    op, cp = l2_kernel.rs_verify_plain(blocks, fec)
+    torch.cuda.synchronize()
+    if not torch.equal(ck, cp) or not torch.equal(ok, op) \
+            or ok.dtype != op.dtype or ck.dtype != cp.dtype:
+        bad = (ck != cp) | (ok != op).any(dim=1)
+        i = int(bad.nonzero()[0, 0].item()) if bad.any() else -1
+        raise AssertionError(
+            f"RS differs from its plain version on {label}: "
+            f"{int(bad.sum().item())} rows, e.g. row {i} (fec_octets "
+            f"{int(fec[i].item())}, count {int(ck[i].item())} against "
+            f"{int(cp[i].item())})")
+    vals, n = torch.unique(cp, return_counts=True)
+    return {"rows": blocks.shape[0],
+            "by_count": {int(v): int(c) for v, c in zip(vals, n)}}
+
+
+def capture_l2_inputs(scene, mesh_shape=None) -> dict:
+    """The arguments L2H, L2D and RS get on the gated wideband path,
+    keyed (stage, kernel): stage "block" the second block's (the sliced
+    path, l2_sliced with rs_burst_cap), "eof" the flush's (finish(),
+    launch_compacted_l2, uncapped).  With ``mesh_shape`` the mesh's
+    (launch_compacted_l2 over every shard's slots)."""
+    from dumpvdl2_tpu_torch.core.mesh_pipeline import MeshPipeline
+    l2_step, _ = l2_modules()
+    freqs, fs, os_, sig, _, _ = scene
+    got: dict = {}
+    stage = ["block"]
+    orig = {n: getattr(l2_step, n) for n in L2_KERNELS}
+
+    def spy(n):
+        def fn(*a):
+            got[(stage[0], n)] = a
+            return orig[n](*a)
+        return fn
+
+    if mesh_shape is None:
+        pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+    else:
+        pipe = MeshPipeline(freqs, int(CENTER), fs, os_,
+                            mesh_shape=mesh_shape,
+                            devices=mesh_devices(mesh_shape))
+    try:
+        for n in L2_KERNELS:
+            setattr(l2_step, n, spy(n))
+        for b in range(2):
+            pipe.feed_planar(sig[:, b * WIDEBAND_BLOCK:
+                                 (b + 1) * WIDEBAND_BLOCK])
+        stage[0] = "eof"
+        pipe.finish()
+    finally:
+        for n, fn in orig.items():
+            setattr(l2_step, n, fn)
+    torch.cuda.synchronize()
+    return got
+
+
+def check_l2_captured(got: dict, label: str) -> dict:
+    """L2H, L2D and RS against their plain versions on captured real
+    inputs, at each stage's shapes."""
+    res = {}
+    for stage in ("block", "eof"):
+        (sym,) = got[(stage, "l2_header")]
+        d_args = got[(stage, "l2_deinterleave")]
+        blocks, fec = got[(stage, "rs_verify")]
+        h = compare_l2h(sym, f"{label} {stage}")
+        d = compare_l2d(d_args, f"{label} {stage}")
+        r = compare_rs(blocks, fec, f"{label} {stage}")
+        res[stage] = {"l2h": h, "l2d": d, "rs": r,
+                      "symbols": list(sym.shape),
+                      "table_rows": d["rows"], "rs_rows": list(blocks.shape)}
+        log(f"L2 {label} {stage}: L2H on {tuple(sym.shape)} symbols "
+            f"({h['hdr_ok']} headers accepted), L2D on {d['rows']} bursts "
+            f"({d['rs_rows']} RS rows with parity), RS on "
+            f"{tuple(blocks.shape)} rows (by count {r['by_count']}): all "
+            f"equal to their plain versions")
+    return res
+
+
+def check_l2(scene) -> dict:
+    """L2H, L2D and RS against their plain versions on the card: the
+    wideband scene's real L2 inputs (sliced and EOF), a fuzz of RS rows
+    over every case of rs_verify, symbol rows of synthesized bursts and
+    noise (with the sliced path's compaction), and the near-cap burst;
+    then each kernel's device time, its plain version's and its bound
+    at the main path's shapes."""
+    l2_step, l2_kernel = l2_modules()
+    got = capture_l2_inputs(scene)
+    res = {"real": check_l2_captured(got, "wideband")}
+
+    rows, fec = sim.rs_fuzz(24000, seed=21)
+    fuzz = compare_rs(torch.as_tensor(rows, device="cuda"),
+                      torch.as_tensor(fec, device="cuda"), "RS fuzz")
+    res["rs_fuzz"] = fuzz
+    log(f"RS fuzz: {fuzz['rows']} rows (fec_octets 0-7 and -1; 0-20 "
+        f"errors), by count {fuzz['by_count']}: equal to its plain "
+        f"version")
+
+    sym = torch.as_tensor(sim.l2_fuzz(384, seed=22), device="cuda")
+    compare_l2h(sym, "L2 fuzz")
+    hdr = l2_kernel.l2_header_plain(sym)
+    for cap in (None, 96):
+        sel = None if cap is None else torch.argsort(
+            (~hdr["hdr_ok"]).to(torch.int32), stable=True)[:cap]
+        d_args = (sym, sel, hdr["hdr_ok"], hdr["num_blocks"],
+                  hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
+        compare_l2d(d_args, f"L2 fuzz, {cap} rows selected")
+        tab, fec_row = l2_kernel.l2_deinterleave_plain(*d_args)
+        r = compare_rs(tab.reshape(-1, 255).contiguous(),
+                       fec_row.reshape(-1).contiguous(), "L2 fuzz tables")
+        log(f"L2 fuzz ({tuple(sym.shape)} symbols, {cap} rows selected): "
+            f"L2H, L2D and RS equal to their plain versions; RS rows by "
+            f"count {r['by_count']}")
+        out = l2_step.l2_decode_batch(sym, sym.shape[1],
+                                      rs_burst_cap=cap)
+        want = l2_step.l2_decode_batch(sym.cpu(), sym.shape[1],
+                                       rs_burst_cap=cap)
+        for key, v in want.items():
+            if not torch.equal(out[key].cpu(), v):
+                raise AssertionError(f"l2_decode_batch on the card differs "
+                                     f"from the CPU's: {key}")
+    res["l2_fuzz_rows"] = sym.shape[0]
+
+    # the correctness vector's near-cap (1990-octet) burst
+    _, _, _, _, vector = vector_signal()
+    rng = np.random.default_rng(23)
+    near = torch.as_tensor(sim.bits_to_symbol_row(
+        sim.build_burst_bits([vector[2][1]]), sym.shape[1], rng)[None, :],
+        device="cuda")
+    compare_l2h(near, "near-cap burst")
+    hdr = l2_kernel.l2_header_plain(near)
+    d_args = (near, None, hdr["hdr_ok"], hdr["num_blocks"],
+              hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
+    compare_l2d(d_args, "near-cap burst")
+    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*d_args)
+    r = compare_rs(tab.reshape(-1, 255), fec_row.reshape(-1),
+                   "near-cap burst")
+    out = l2_step.l2_decode_batch(near, near.shape[1])
+    res_b = burst._result_from_batch(
+        {k: v.cpu().numpy() for k, v in out.items()}, 0)
+    if not res_b.ok or [bytes(f) for f in res_b.frames] != \
+            [frame_with_fcs(vector[2][1])]:
+        raise AssertionError(f"near-cap burst: {res_b.reason}")
+    log(f"L2 near-cap burst: {int(hdr['num_blocks'][0])} RS blocks, "
+        f"L2H, L2D and RS equal to their plain versions (RS by count "
+        f"{r['by_count']}), the frame decodes through the kernels")
+    res["near_cap"] = {"num_blocks": int(hdr["num_blocks"][0]), **r}
+
+    # times and bounds at the main path's shapes: the sliced block's
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    (sym,) = got[("block", "l2_header")]
+    d_args = got[("block", "l2_deinterleave")]
+    blocks, fec = got[("block", "rs_verify")]
+    _, count = l2_kernel.rs_verify_cuda(blocks, fec)
+    times = {
+        "l2_header": {**time_gate(
+            lambda: l2_kernel.l2_header_cuda(sym),
+            lambda: l2_kernel.l2_header_plain(sym), "l2_header_kernel"),
+            **l2h_bound(sym.shape[0], sms, clock),
+            "shape": list(sym.shape)},
+        "l2_deinterleave": {**time_gate(
+            lambda: l2_kernel.l2_deinterleave_cuda(*d_args),
+            lambda: l2_kernel.l2_deinterleave_plain(*d_args),
+            "l2_deinterleave_kernel"), **l2d_bound(d_args, sms, clock),
+            "shape": [len(d_args[1] if d_args[1] is not None
+                          else sym), 9, 255]},
+        "rs_verify": {**time_gate(
+            lambda: l2_kernel.rs_verify_cuda(blocks, fec),
+            lambda: l2_kernel.rs_verify_plain(blocks, fec),
+            "rs_verify_kernel"), **rs_bound(fec, count, sms, clock),
+            "shape": list(blocks.shape),
+            "rows_with_parity": int((fec != 0).sum().item())}}
+    for name, t in times.items():
+        log(f"{name} at {tuple(t['shape'])}: kernel {t['ms']:.4f} ms "
+            f"({t['ms_from']}), a wrapper call {t['call_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.6f}, issue "
+            f"{t['ops_ms']:.6f}); {t['bound_ms'] / t['ms']:.3f} of the "
+            f"bound")
+    res["times"] = times
+    return res
+
+
 def vector_signal():
     """Three-burst vector (strong / marginal / near-cap) for 8 channels
     at oversample 20: the samples, their rate, the channels and the
@@ -956,6 +1257,7 @@ def mesh_phase(scene, single_frames) -> dict:
     wide grids' plain G1 runs here, after the single-device phases, so
     that its thousands of small launches and allocations come after the
     single-device timings, as in earlier versions of this script.)"""
+    _, l2_kernel = l2_modules()
     for k in (128, 256, 512):
         compare_g1(gate_grid(256, k, 9 + k), 5.0, False, 3 * 17476,
                    f"(256, {k}) mesh slots")
@@ -966,6 +1268,8 @@ def mesh_phase(scene, single_frames) -> dict:
     for shape in ((1, 2), (2, 2)):
         res["k1_max_abs_err"] = max(res["k1_max_abs_err"],
                                     check_mesh_kernels(scene, shape))
+        res[f"l2 {shape}"] = check_l2_captured(
+            capture_l2_inputs(scene, shape), f"mesh {shape}")
         n_shards = shape[0] * shape[1]
         devs = mesh_devices(shape)
         run_mesh(scene, shape)                  # warm-up
@@ -973,6 +1277,7 @@ def mesh_phase(scene, single_frames) -> dict:
         torch.cuda.reset_peak_memory_stats()
         plain_calls: dict = {}
         restore = [count_calls(gate_kernel, GATE_PLAIN, plain_calls),
+                   count_calls(l2_kernel, L2_PLAIN, plain_calls),
                    count_calls(sync_kernel, ("sync_error_metric_plain",),
                                plain_calls)]
         try:
@@ -981,7 +1286,7 @@ def mesh_phase(scene, single_frames) -> dict:
             frames, rereads = run_mesh(scene, shape)
             dt = time.perf_counter() - t0
             launches = {"sync_error_metric": sync_kernel.launches,
-                        **gate_kernel.launches}
+                        **gate_kernel.launches, **l2_kernel.launches}
         finally:
             for r in restore:
                 r()
@@ -992,7 +1297,8 @@ def mesh_phase(scene, single_frames) -> dict:
                                  f"{plain_calls}")
         expect = {"sync_error_metric": n_shards * WIDEBAND_BLOCKS + 1,
                   "gate": WIDEBAND_BLOCKS + 1,
-                  "nf_track": WIDEBAND_BLOCKS + 1}
+                  "nf_track": WIDEBAND_BLOCKS + 1,
+                  **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS}}
         if launches != expect:
             raise AssertionError(f"{label} launched {launches}, expected "
                                  f"{expect}")
@@ -1140,9 +1446,12 @@ def profile_phase() -> dict:
 
 
 def reset_launches() -> None:
+    _, l2_kernel = l2_modules()
     sync_kernel.launches = 0
     for k in gate_kernel.launches:
         gate_kernel.launches[k] = 0
+    for k in l2_kernel.launches:
+        l2_kernel.launches[k] = 0
     for k in native.calls:
         native.calls[k] = 0
 
@@ -1178,6 +1487,7 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     """One mode of the wideband path: a warm-up, the counted and timed
     run, and a synchronized breakdown run.  Returns the kernel launches
     of the timed run, its frames and its numbers."""
+    _, l2_kernel = l2_modules()
     freqs, fs, os_, sig, want, _ = scene
     mode = "gated" if device_gate else "host-gated"
     # warm-up on a fresh pipeline: library handles, allocator pools
@@ -1188,23 +1498,27 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     torch.cuda.reset_peak_memory_stats()
     plain_calls: dict = {}
     spec_calls: dict = {}
-    restore = count_calls(gate_kernel, GATE_PLAIN, plain_calls)
-    restore_spec = count_calls(unstuff, ("_frames_py",), spec_calls)
+    restore = [count_calls(gate_kernel, GATE_PLAIN, plain_calls),
+               count_calls(l2_kernel, L2_PLAIN, plain_calls),
+               count_calls(unstuff, ("_frames_py",), spec_calls)]
     try:
         reset_launches()
         t0 = time.perf_counter()
         frames = run_wideband(freqs, fs, os_, sig, device_gate=device_gate)
         dt = time.perf_counter() - t0
         launches = {"sync_error_metric": sync_kernel.launches,
-                    **gate_kernel.launches}
+                    **gate_kernel.launches, **l2_kernel.launches}
         native_calls = dict(native.calls)
     finally:
-        restore()
-        restore_spec()
+        for r in restore:
+            r()
     peak = torch.cuda.max_memory_allocated()
     if any(plain_calls.values()):
         raise AssertionError(f"wideband {mode}: plain versions of the gate "
-                             f"kernels ran on the card: {plain_calls}")
+                             f"or L2 kernels ran on the card: {plain_calls}")
+    if not all(launches[k] for k in L2_KERNELS):
+        raise AssertionError(f"wideband {mode}: an L2 kernel never "
+                             f"launched: {launches}")
 
     got = {(bytes(f.frame), f.metadata.freq) for f in frames}
     missing = [w for w in want if w not in got]
@@ -1220,7 +1534,7 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
                              f"{spec_calls}")
     log(f"wideband {mode}: {len(want)}/{len(want)} payloads decoded "
         f"({len(frames)} frames), kernel launches on this run: {launches}; "
-        f"plain gate calls {plain_calls}; native library calls "
+        f"plain gate and L2 calls {plain_calls}; native library calls "
         f"{native_calls}, Python spec calls {spec_calls}")
     log(f"wideband {mode}: {n} samples in {dt:.4f} s -> {msps:.3f} "
         f"Msamples/s sustained, realtime factor {msps / (fs / 1e6):.3f} "
@@ -1412,12 +1726,14 @@ def main() -> int:
     checks.append(check_k1_real(*scene[:4]))
     k1_main = time_k1(256, 108844, seed=0)
     g1, g2 = check_gates(scene)
+    l2 = check_l2(scene)
 
     vec = correctness_vector()
     launches, gated_frames, wb = wideband_path(scene, device_gate=True)
     # each kernel once a block and once at EOF
     want = {"sync_error_metric": WIDEBAND_BLOCKS + 1,
-            "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1}
+            "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1,
+            **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS}}
     if launches != want:
         raise AssertionError(f"the gated wideband path launched {launches}, "
                              f"expected {want}")
@@ -1446,13 +1762,22 @@ def main() -> int:
               "dumpvdl2_tpu/core/nf_gate.py:133", g1, g1["max_abs_err"]),
         entry("nf_track", "dumpvdl2_tpu_torch/csrc/gate.cu",
               "dumpvdl2_tpu/core/nf_gate.py:186", g2, g2["max_abs_err"]),
+        entry("l2_header", "dumpvdl2_tpu_torch/csrc/l2.cu",
+              "dumpvdl2_tpu/fec/l2_tpu.py:63", l2["times"]["l2_header"], 0),
+        entry("l2_deinterleave", "dumpvdl2_tpu_torch/csrc/l2.cu",
+              "dumpvdl2_tpu/fec/l2_tpu.py:63",
+              l2["times"]["l2_deinterleave"], 0),
+        entry("rs_verify", "dumpvdl2_tpu_torch/csrc/l2.cu",
+              "dumpvdl2_tpu/fec/rs_tpu.py:252", l2["times"]["rs_verify"],
+              0),
     ]}
     log(json.dumps({"wideband_gated": wb, "wideband_host_gated": wb_host,
                     "modes_max_d_nf_db": d_nf, "vector": vec, "cli": cli,
                     "host_l2": host_l2, "mesh": mesh,
                     "multihost": multi, "profile": prof,
                     "host_library": host_lib,
-                    "k1": k1_main, "g1": g1, "g2": g2, "card": card}))
+                    "k1": k1_main, "g1": g1, "g2": g2, "l2": l2,
+                    "card": card}))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,15 +14,18 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .constants import (HDRFECLEN, HEADER_LEN, MAX_FRAME_LENGTH,
                         MAX_FRAME_LENGTH_CORRECTED, RS_K, RS_N, TRLEN)
 from .fec.header import SYND_WEIGHT, decode_header
 from .fec.interleave import burst_geometry, deinterleave_burst, get_fec_octetcount
+from .fec.l2 import l2_decode_batch
 from .fec.rs import rs_verify
 from .fec.scramble import descramble
 from .link.unstuff import UnstuffError, frames_from_bits
 from .utils.bits import bits_to_word_msb, pack_lsb, reverse_bits
+from .utils.devices import resolve_device
 
 
 @dataclass
@@ -73,6 +76,29 @@ def header_info(header_bits: np.ndarray) -> BurstResult:
     res.ok = True
     res.bits_consumed = HEADER_LEN + 8 * (res.datalen_octets + fec_octets)
     return res
+
+
+def decode_bursts_device(symbols: np.ndarray, max_symbols: int,
+                         device: str | torch.device | None = None
+                         ) -> list[BurstResult]:
+    """Batched burst decode on the card (fec/l2.py: kernels L2H, L2D
+    and RS), or on the CPU when ``device="cpu"``.
+
+    ``symbols``: (B, S) uint8 gray-decoded symbols, one row per
+    candidate burst.  Descramble, header FEC, deinterleave and RS run
+    batched on the device for the whole batch; only HDLC unstuff +
+    framing happen here per burst.  Result list matches what
+    ``decode_burst`` returns for each row's bit expansion.
+    """
+    syms = torch.as_tensor(np.asarray(symbols, dtype=np.uint8),
+                           device=resolve_device(device))
+    out = tree_to_numpy(l2_decode_batch(syms, max_symbols))
+    return [_result_from_batch(out, i) for i in range(syms.shape[0])]
+
+
+def tree_to_numpy(tree: dict) -> dict:
+    """A dict of device tensors as numpy arrays on the host."""
+    return {k: v.cpu().numpy() for k, v in tree.items()}
 
 
 def _result_from_batch(out: dict, i: int) -> BurstResult:

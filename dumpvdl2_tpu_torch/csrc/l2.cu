@@ -1,0 +1,435 @@
+// L2 kernels L2H (l2_header), L2D (l2_deinterleave) and RS (rs_verify)
+// for Hopper (sm_90a).
+//
+// These replace the XLA stages of the JAX package's L2 step, which it
+// compiles into one executable (dumpvdl2_tpu/core/pipeline.py:204,
+// fec/l2_tpu.py:63, fec/rs_tpu.py:120 and :252), not TPU kernels.  The
+// plain versions are in dumpvdl2_tpu_torch/fec/l2_kernel.py
+// (l2_header_plain, l2_deinterleave_plain, rs_verify_plain); on a CUDA
+// tensor the wrappers there launch these.  Every output is an integer
+// or a byte and equals the plain version's exactly, on any input: int32
+// sums wrap as PyTorch's do (wadd, wmul), and every GF(256) product is
+// the exact field product, however the plain version forms it (log
+// tables or carry-less shifts).  The constant tables (exp/log, the
+// header syndrome table, its weights and parity rows, the PRBS) come
+// from the port's Python tables, through the wrappers.
+//
+// L2H l2_header replaces fec/l2_tpu.py:63's header part: the 25 header
+//   bits from the first 9 symbols, descrambled, the (25,20) header FEC,
+//   the bit-reversed transmission length, the reserved/too-long/no-FEC
+//   checks and the RS geometry.  A thread a burst.  Bound: it reads 9
+//   symbols a burst and writes 36 bytes: under 0.1 us for 1 024 bursts;
+//   what it takes is a launch.
+//
+// L2D l2_deinterleave replaces the payload part of the same function:
+//   octet packing and the deinterleave gather into each burst's 9 x 255
+//   RS table, and each row's parity count.  The plain version builds
+//   (B, 3 S) int32 bit planes (69 MB at B = 1 024) and a (B, 2 100)
+//   int32 octet plane to gather from.  Here a CTA takes a burst: a
+//   rejected burst (no RS row) only writes its zero table; an accepted
+//   one packs its 2 100 octets into shared memory straight from its
+//   symbols and the PRBS (8 bits an octet, from 3 or 4 symbols), then
+//   writes the table, one coalesced byte a cell.  Bound: bytes, the
+//   accepted bursts' symbols (5 616 B each) in and 2 295 B a burst out.
+//
+// RS rs_verify replaces fec/rs_tpu.py:252 rs_verify_batch and :120
+//   rs_decode_batch: RS(255,249) errors-and-erasures decode of each
+//   row, the absent parity positions KK + fec_octets + j (clamped to
+//   NN - 1) as erasures.  The plain version runs each step over the
+//   whole batch: ~2 000 launches, among them the 6 erasure and 6
+//   Berlekamp-Massey steps and 13 eight-step carry-less multiplies for
+//   every inverse.  Here a warp takes a row (8 rows a CTA); lane l
+//   holds positions l + 32 m (coalesced loads and stores); the exp/log
+//   tables sit in shared memory.  A row with fec_octets == 0 (pad rows,
+//   most of them) and a row with a zero syndrome pass through at once.
+//   The 6 syndromes are lane partials XOR-reduced by shuffles; every
+//   lane runs the erasure locator and BM on the same 7 coefficients in
+//   registers; Chien and Forney evaluate each lane's 8 positions; the
+//   root count is a warp sum, a zero Forney denominator at a root a
+//   warp vote.  Bound: bytes (2 x 255 + 8 a row: 1.2 MB at 2 304 rows,
+//   0.36 us); its table lookups at ~7 a position for rows with a
+//   nonzero syndrome, a few us of issue at most.
+//   Failure rules, as the plain version's: deg_lambda is the highest
+//   index with lambda != 0; omega is cut at deg_lambda - 1; the Forney
+//   denominator takes the odd lambda terms up to min(deg_lambda, 5) & ~1;
+//   a root count other than deg_lambda, a zero denominator at a root or
+//   more than 6 erasures fails the row (count -1, bytes unchanged).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHeaderLen = 25;                 // HEADER_LEN
+constexpr int kTrLen = 17;                     // TRLEN
+constexpr int kHdrFecLen = 5;                  // HDRFECLEN
+constexpr int kMaxFrameLength = 0x3FFF;        // MAX_FRAME_LENGTH
+constexpr int kMaxFrameLengthCorrected = 0x1FFF;
+constexpr int kRsN = 255;                      // RS_N, NN
+constexpr int kRsK = 249;                      // RS_K, KK
+constexpr int kRoots = 6;                      // NROOTS
+constexpr int kFcr = 120;                      // FCR
+constexpr int kGf = 255;                       // GF_SIZE
+constexpr int kA0 = 255;                       // log of 0
+constexpr int kMaxBlocks = 9;                  // MAX_BLOCKS
+constexpr int kMaxTotalOct = 2100;             // MAX_TOTAL_OCT
+constexpr int kCells = kMaxBlocks * kRsN;      // a burst's table
+
+constexpr int kHeaderThreads = 128;            // L2H: bursts a CTA
+constexpr int kDeintThreads = 256;             // L2D: threads a burst
+constexpr int kRsWarps = 8;                    // RS: rows a CTA
+constexpr int kPerLane = 8;                    // RS: positions a lane
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) -
+                          static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wmul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) *
+                          static_cast<unsigned>(b));
+}
+
+// Descrambled bit p of a burst: bit 2 - p % 3 of symbol p / 3 (MSB
+// first), XOR the PRBS.
+__device__ __forceinline__ int clear_bit(const uint8_t* __restrict__ row,
+                                         const uint8_t* __restrict__ prbs,
+                                         int p) {
+  return ((row[p / 3] >> (2 - p % 3)) & 1) ^ prbs[p];
+}
+
+// get_fec_octetcount (decode.c:124-133)
+__device__ __forceinline__ int fec_octetcount(int last_len) {
+  return last_len < 3 ? 0 : last_len < 31 ? 2 : last_len < 68 ? 4 : 6;
+}
+
+// ----------------------------------------------------------------- L2H
+__global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
+    const uint8_t* __restrict__ symbols, int B, int S,
+    const int* __restrict__ synd_table, const int* __restrict__ synd_weight,
+    const int* __restrict__ h_rows, const uint8_t* __restrict__ prbs,
+    int* __restrict__ out, uint8_t* __restrict__ flags) {
+  const int b = blockIdx.x * kHeaderThreads + threadIdx.x;
+  if (b >= B) return;
+  const uint8_t* row = symbols + static_cast<long long>(b) * S;
+  int word = 0;
+  for (int i = 0; i < kHeaderLen; ++i)
+    word |= clear_bit(row, prbs, i) << (kHeaderLen - 1 - i);
+  word &= (1 << (kTrLen + kHdrFecLen)) - 1;     // zero the reserved bits
+  int synd = 0;
+  for (int i = 0; i < kHdrFecLen; ++i)
+    synd |= (__popc(word & h_rows[i]) & 1) << (kHdrFecLen - 1 - i);
+  const int corrected = word ^ synd_table[synd];
+  const bool reserved_bad = (corrected >> (kTrLen + kHdrFecLen)) != 0;
+  const int trfield = (corrected >> kHdrFecLen) & ((1 << kTrLen) - 1);
+  const int datalen = static_cast<int>(
+      __brev(static_cast<unsigned>(trfield)) >> (32 - kTrLen));
+  const bool too_long =
+      (synd != 0 && datalen > kMaxFrameLengthCorrected) ||
+      datalen > kMaxFrameLength;
+  const int doct = (datalen + 7) / 8;
+  const int q = doct / kRsK;
+  const int r = doct - q * kRsK;
+  const int fec_last = r == 0 ? 0 : fec_octetcount(r);
+  const int fec_total = q * (kRsN - kRsK) + fec_last;
+  const bool no_fec = fec_total == 0;
+  // int32 results in HDR_INT order, then the flags in HDR_BOOL order
+  out[b] = synd;
+  out[B + b] = synd_weight[synd];
+  out[2 * B + b] = datalen;
+  out[3 * B + b] = doct;
+  out[4 * B + b] = q + (r != 0);                          // num_blocks
+  out[5 * B + b] = r == 0 ? kRsK : r;                     // last_len
+  out[6 * B + b] = kHeaderLen + 8 * (doct + fec_total);   // bits_consumed
+  out[7 * B + b] = r == 0 ? kRsN - kRsK : fec_last;       // lf
+  flags[b] = reserved_bad;
+  flags[B + b] = too_long;
+  flags[2 * B + b] = no_fec;
+  flags[3 * B + b] = !reserved_bad && !too_long && !no_fec;
+}
+
+// ----------------------------------------------------------------- L2D
+__global__ void __launch_bounds__(kDeintThreads) l2_deinterleave_kernel(
+    const uint8_t* __restrict__ symbols, int S,
+    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
+    const int* __restrict__ lf, const int* __restrict__ doct,
+    const uint8_t* __restrict__ prbs, uint8_t* __restrict__ tab,
+    int* __restrict__ fec_row) {
+  __shared__ uint8_t oct[kMaxTotalOct];
+  const int bp = blockIdx.x;
+  const long long src_row = sel != nullptr ? sel[bp] : bp;
+  const bool ok = hdr_ok[src_row] != 0;
+  // rejected bursts carry geometry 0
+  const int nb = ok ? num_blocks[src_row] : 0;
+  const int ll = ok ? last_len[src_row] : 0;
+  const int lfv = ok ? lf[src_row] : 0;
+  const int dl = ok ? doct[src_row] : 0;
+  const int nbm1 = wadd(nb, -1);
+  uint8_t* out = tab + static_cast<long long>(bp) * kCells;
+  if (threadIdx.x < kMaxBlocks) {
+    const int r = threadIdx.x;
+    fec_row[bp * kMaxBlocks + r] =
+        r < nbm1 ? kRsN - kRsK : r == nbm1 ? lfv : 0;
+  }
+  if (nb <= 0) {                      // no table row: every cell a pad
+    for (int c = threadIdx.x; c < kCells; c += kDeintThreads) out[c] = 0;
+    return;
+  }
+  // octet o packs descrambled bits HEADER_LEN + 8 o + t, LSB first
+  const uint8_t* row = symbols + src_row * S;
+  for (int o = threadIdx.x; o < kMaxTotalOct; o += kDeintThreads) {
+    const int p0 = kHeaderLen + 8 * o;
+    int v = 0;
+    for (int t = 0; t < 8; ++t) v |= clear_bit(row, prbs, p0 + t) << t;
+    oct[o] = static_cast<uint8_t>(v);
+  }
+  __syncthreads();
+  // cell (r, c) takes transmission index c (nb - 1) + min(c, ll) + r
+  // (data columns) or doct + cf (nb - 1) + min(cf, lf) + r (parity)
+  for (int cell = threadIdx.x; cell < kCells; cell += kDeintThreads) {
+    const int r = cell / kRsN;
+    const int c = cell - r * kRsN;
+    const bool is_data = c < kRsK;
+    const int cf = c - kRsK;
+    const int src = is_data
+        ? wadd(wadd(wmul(c, nbm1), min(c, ll)), r)
+        : wadd(wadd(wadd(dl, wmul(cf, nbm1)), min(cf, lfv)), r);
+    const int cpr = is_data ? (r < nbm1 ? kRsK : ll)
+                            : (r < nbm1 ? kRsN - kRsK : lfv);
+    const bool valid = r < nb && (is_data ? c : cf) < cpr;
+    out[cell] = valid ? oct[min(max(src, 0), kMaxTotalOct - 1)] : 0;
+  }
+}
+
+// ------------------------------------------------------------------ RS
+// The exact GF(256) product from the log tables (exp2 spans two periods).
+__device__ __forceinline__ int gmul(int a, int b,
+                                    const uint8_t* __restrict__ exp2,
+                                    const uint8_t* __restrict__ lg) {
+  return (a == 0 || b == 0) ? 0 : exp2[lg[a] + lg[b]];
+}
+
+__global__ void __launch_bounds__(32 * kRsWarps) rs_verify_kernel(
+    const uint8_t* __restrict__ blocks, const int* __restrict__ fec_octets,
+    int N, const int* __restrict__ alpha_to,
+    const int* __restrict__ index_of, uint8_t* __restrict__ out,
+    int* __restrict__ count) {
+  __shared__ uint8_t exp2[2 * kGf];
+  __shared__ uint8_t lg[kGf + 1];
+  for (int i = threadIdx.x; i < 2 * kGf; i += 32 * kRsWarps)
+    exp2[i] = static_cast<uint8_t>(alpha_to[i % kGf]);
+  for (int i = threadIdx.x; i <= kGf; i += 32 * kRsWarps)
+    lg[i] = static_cast<uint8_t>(index_of[i]);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int rowi = blockIdx.x * kRsWarps + (threadIdx.x >> 5);
+  if (rowi >= N) return;                         // a whole warp
+  const uint8_t* in = blocks + static_cast<long long>(rowi) * kRsN;
+  uint8_t* o = out + static_cast<long long>(rowi) * kRsN;
+  int cw[kPerLane];
+#pragma unroll
+  for (int m = 0; m < kPerLane; ++m) {
+    const int k = lane + 32 * m;
+    cw[m] = k < kRsN ? in[k] : 0;
+  }
+  const int fo = fec_octets[rowi];
+  auto pass = [&](int cnt) {
+#pragma unroll
+    for (int m = 0; m < kPerLane; ++m) {
+      const int k = lane + 32 * m;
+      if (k < kRsN) o[k] = static_cast<uint8_t>(cw[m]);
+    }
+    if (lane == 0) count[rowi] = cnt;
+  };
+  if (fo == 0) {                                 // no parity: skip FEC
+    pass(0);
+    return;
+  }
+
+  // ---- syndromes S_i = sum_k cw[k] alpha^((FCR + i)(NN - 1 - k)) ----
+  int s[kRoots];
+#pragma unroll
+  for (int i = 0; i < kRoots; ++i) s[i] = 0;
+#pragma unroll
+  for (int m = 0; m < kPerLane; ++m) {
+    const int k = lane + 32 * m;
+    if (k < kRsN && cw[m] != 0) {
+      const int lc = lg[cw[m]];
+#pragma unroll
+      for (int i = 0; i < kRoots; ++i)
+        s[i] ^= exp2[lc + ((kFcr + i) * (kRsN - 1 - k)) % kGf];
+    }
+  }
+  bool syn_zero = true;
+#pragma unroll
+  for (int i = 0; i < kRoots; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s[i] ^= __shfl_xor_sync(kFull, s[i], off);
+    syn_zero = syn_zero && s[i] == 0;
+  }
+  if (syn_zero) {
+    pass(0);
+    return;
+  }
+
+  // ---- erasure locator: prod (1 + alpha^(NN-1-pos) x), degree <= 6 --
+  const int n_erase = wsub(kRoots, fo);
+  int lam[kRoots + 1] = {1, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < kRoots; ++j) {
+    if (j < n_erase) {
+      const int pos = min(max(wadd(wadd(kRsK, fo), j), 0), kRsN - 1);
+      const int au = exp2[kRsN - 1 - pos];
+#pragma unroll
+      for (int i = kRoots; i > 0; --i) lam[i] ^= gmul(lam[i - 1], au, exp2, lg);
+    }
+  }
+  int b[kRoots + 1];
+#pragma unroll
+  for (int i = 0; i <= kRoots; ++i) b[i] = lg[lam[i]];
+  int el = n_erase;
+
+  // ---- Berlekamp-Massey, steps r > n_erase ---------------------------
+#pragma unroll
+  for (int r = 1; r <= kRoots; ++r) {
+    int discr = 0;
+#pragma unroll
+    for (int i = 0; i < r; ++i) discr ^= gmul(lam[i], s[r - 1 - i], exp2, lg);
+    const int dlog = lg[discr];
+    const bool update = wmul(2, el) <= wadd(wadd(r, n_erase), -1);
+    if (r > n_erase && discr != 0) {
+      int t[kRoots + 1];
+      t[0] = lam[0];
+#pragma unroll
+      for (int i = 1; i <= kRoots; ++i)
+        t[i] = lam[i] ^ (b[i - 1] != kA0 ? exp2[dlog + b[i - 1]] : 0);
+      if (update) {
+        el = wsub(wadd(r, n_erase), el);
+#pragma unroll
+        for (int i = 0; i <= kRoots; ++i)
+          b[i] = lam[i] == 0 ? kA0 : (lg[lam[i]] - dlog + kGf) % kGf;
+      } else {
+#pragma unroll
+        for (int i = kRoots; i > 0; --i) b[i] = b[i - 1];
+        b[0] = kA0;
+      }
+#pragma unroll
+      for (int i = 0; i <= kRoots; ++i) lam[i] = t[i];
+    } else if (r > n_erase) {
+#pragma unroll
+      for (int i = kRoots; i > 0; --i) b[i] = b[i - 1];
+      b[0] = kA0;
+    }
+  }
+  int deg = 0;
+  int loglam[kRoots + 1];
+#pragma unroll
+  for (int i = 0; i <= kRoots; ++i) {
+    loglam[i] = lg[lam[i]];
+    if (lam[i] != 0) deg = i;
+  }
+
+  // ---- omega = S(x) lambda(x) mod x^6, cut at deg_lambda - 1 ---------
+  int logom[kRoots];
+#pragma unroll
+  for (int oi = 0; oi < kRoots; ++oi) {
+    int acc = 0;
+#pragma unroll
+    for (int j = 0; j <= oi; ++j) acc ^= gmul(s[oi - j], lam[j], exp2, lg);
+    logom[oi] = lg[oi <= deg - 1 ? acc : 0];
+  }
+  const int lim = min(deg, kRoots - 1) & ~1;
+
+  // ---- Chien search and Forney at this lane's positions --------------
+  int mag[kPerLane];
+  int roots = 0;
+  bool den_zero = false;
+#pragma unroll
+  for (int m = 0; m < kPerLane; ++m) {
+    const int k = lane + 32 * m;
+    const int i = k + 1;                         // location k <-> alpha^i
+    mag[m] = 0;
+    if (k >= kRsN) continue;
+    int q = 0;
+#pragma unroll
+    for (int j = 0; j <= kRoots; ++j)
+      if (loglam[j] != kA0) q ^= exp2[loglam[j] + (j * i) % kGf];
+    if (q != 0) continue;
+    ++roots;
+    int num1 = 0;
+#pragma unroll
+    for (int j = 0; j < kRoots; ++j)
+      if (logom[j] != kA0) num1 ^= exp2[logom[j] + (j * i) % kGf];
+    int den = 0;
+#pragma unroll
+    for (int e = 0; e < kRoots; e += 2)
+      if (e <= lim && loglam[e + 1] != kA0)
+        den ^= exp2[loglam[e + 1] + (e * i) % kGf];
+    if (den == 0) {
+      den_zero = true;
+    } else if (num1 != 0) {
+      // num1 * num2 / den, num2 = alpha^(i (FCR - 1))
+      const int num2_log = (i * (kFcr - 1)) % kGf;
+      mag[m] = exp2[(lg[num1] + num2_log + kGf - lg[den]) % kGf];
+    }
+  }
+  const int root_count = __reduce_add_sync(kFull, roots);
+  const bool fail = root_count != deg || __any_sync(kFull, den_zero) ||
+                    n_erase > kRoots;
+  if (fail) {
+    pass(-1);
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < kPerLane; ++m) cw[m] ^= mag[m];
+  pass(root_count);
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes by dumpvdl2_tpu_torch/fec/l2_kernel.py:
+// each launches on `stream`, allocates nothing, and returns a CUDA error
+// code (0 = launched).
+extern "C" int l2_header_launch(const uint8_t* symbols, int B, int S,
+                                const int* synd_table,
+                                const int* synd_weight, const int* h_rows,
+                                const uint8_t* prbs, int* out,
+                                uint8_t* flags, void* stream) {
+  if (B <= 0) return 0;
+  l2_header_kernel<<<(B + kHeaderThreads - 1) / kHeaderThreads,
+                     kHeaderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      symbols, B, S, synd_table, synd_weight, h_rows, prbs, out, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int l2_deinterleave_launch(
+    const uint8_t* symbols, int S, const long long* sel, int Bp,
+    const uint8_t* hdr_ok, const int* num_blocks, const int* last_len,
+    const int* lf, const int* doct, const uint8_t* prbs, uint8_t* tab,
+    int* fec_row, void* stream) {
+  if (Bp <= 0) return 0;
+  l2_deinterleave_kernel<<<Bp, kDeintThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, prbs, tab,
+      fec_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rs_verify_launch(const uint8_t* blocks, const int* fec_octets,
+                                int N, const int* alpha_to,
+                                const int* index_of, uint8_t* out,
+                                int* count, void* stream) {
+  if (N <= 0) return 0;
+  rs_verify_kernel<<<(N + kRsWarps - 1) / kRsWarps, 32 * kRsWarps, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      blocks, fec_octets, N, alpha_to, index_of, out, count);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -10,6 +10,7 @@ device.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -150,8 +151,15 @@ def demod_window(sym_phase: torch.Tensor, power_all: torch.Tensor,
     # a reciprocal multiply on CUDA, which rounds differently
     q = dp / torch.full((1,), _QUARTER_PI, dtype=torch.float32, device=dev)
     idx = torch.remainder(torch.round(q).to(torch.int64), ARITY)
-    gray = torch.as_tensor(np.array(GRAYCODE, np.uint8), device=dev)
-    return gray[idx], power_all[..., 1:]
+    return _gray(dev)[idx], power_all[..., 1:]
+
+
+@functools.lru_cache(maxsize=4)
+def _gray(device: torch.device) -> torch.Tensor:
+    """The Gray-code table, uploaded once per device: a blocking copy
+    from host memory at every call would wait for all the work queued
+    on the device before it."""
+    return torch.as_tensor(np.array(GRAYCODE, np.uint8), device=device)
 
 
 def slice_windows(plane: torch.Tensor, rows: torch.Tensor,

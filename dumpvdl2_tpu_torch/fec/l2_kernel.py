@@ -1,0 +1,401 @@
+"""L2 kernels L2H, L2D and RS and their plain twins.
+
+The JAX package compiles its whole L2 step (``fec/l2_tpu.py``,
+``fec/rs_tpu.py``) into one XLA executable.  Run eagerly, the same step
+in PyTorch issues ~2 400 small launches a block, most of them the
+Reed-Solomon decoder's 6-step recurrences and bit-serial field
+multiplies.  So the step is three hand-written CUDA kernels
+(``csrc/l2.cu``):
+
+* L2H ``l2_header``: symbols -> bits, PRBS descramble of the 25 header
+  bits, the (25,20) header FEC, the bit-reversed transmission length
+  and the RS geometry, a thread a burst;
+* L2D ``l2_deinterleave``: octet packing and the deinterleave gather of
+  each (compacted) burst's 9 x 255 RS table straight from its symbols,
+  a thread block a burst, and each row's parity count;
+* RS ``rs_verify``: RS(255,249) errors-and-erasures decode of every
+  table row (the absent parity of a shortened block as erasures), a
+  warp a row.
+
+:func:`l2_header`, :func:`l2_deinterleave` and :func:`rs_verify` are
+what ``fec/l2.py`` and ``fec/rs_batch.py`` call.  On a CUDA tensor they
+launch the kernel or raise; on a CPU tensor they run the plain version
+(:func:`l2_header_plain`, :func:`l2_deinterleave_plain`,
+:func:`rs_verify_plain`).  Only the CUDA path counts in
+:data:`launches`.  The kernels read their constant tables (the GF(256)
+exp/log tables, the header syndrome table, its weights and parity rows,
+the PRBS) from this package's Python tables, uploaded once a device.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import (HDRFECLEN, HEADER_LEN, MAX_FRAME_LENGTH,
+                         MAX_FRAME_LENGTH_CORRECTED, RS_K, RS_N, TRLEN)
+from .gf256 import ALPHA_TO, INDEX_OF
+from .header import H_ROWS, SYND_WEIGHT, SYNDTABLE
+from .rs import KK, NN, NROOTS
+from .rs_batch import rs_decode_batch
+from .scramble import PRBS
+
+# Worst-case burst geometry (decode.c:45-48): datalen <= 0x3FFF bits
+# -> 2048 data octets -> 9 RS blocks -> 8*6+4 = 52 FEC octets.
+MAX_DATA_OCT = (MAX_FRAME_LENGTH + 7) // 8              # 2048
+MAX_BLOCKS = -(-MAX_DATA_OCT // RS_K)                   # 9
+MAX_TOTAL_OCT = MAX_DATA_OCT + (MAX_BLOCKS - 1) * (RS_N - RS_K) + 4  # 2100
+# symbol columns the payload's bit window needs (16 825 bits)
+MIN_SYMBOLS = -(-(HEADER_LEN + 8 * MAX_TOTAL_OCT) // 3)  # 5609
+
+# Kernel launches since start (or the last reset by the caller).
+launches = {"l2_header": 0, "l2_deinterleave": 0, "rs_verify": 0}
+
+# L2H's per-burst results, in the kernel's output order: int32, then bool
+HDR_INT = ("syndrome", "synd_weight", "datalen", "datalen_octets",
+           "num_blocks", "last_len", "bits_consumed", "lf")
+HDR_BOOL = ("reserved_bad", "too_long", "no_fec", "hdr_ok")
+
+
+@functools.lru_cache(maxsize=4)
+def _tables(device: torch.device) -> dict[str, torch.Tensor]:
+    """Constant tables, uploaded once per device."""
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return {"synd": t(SYNDTABLE), "weight": t(SYND_WEIGHT),
+            "h_rows": t(H_ROWS), "prbs": t(PRBS, torch.uint8),
+            "alpha_to": t(ALPHA_TO), "index_of": t(INDEX_OF)}
+
+
+def _i32(x) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _parity32(v: torch.Tensor) -> torch.Tensor:
+    """Bitwise parity of each int32 element (shift/xor fold)."""
+    v = v ^ (v >> 16)
+    v = v ^ (v >> 8)
+    v = v ^ (v >> 4)
+    v = v ^ (v >> 2)
+    v = v ^ (v >> 1)
+    return v & 1
+
+
+def _fec_octetcount(last_len: torch.Tensor) -> torch.Tensor:
+    """get_fec_octetcount (decode.c:124-133) as nested selects."""
+    return torch.where(last_len < 3, 0,
+                       torch.where(last_len < 31, 2,
+                                   torch.where(last_len < 68, 4, 6)))
+
+
+def _clear_bits(symbols: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Descrambled bits [lo, hi) of each row: symbols -> bits (MSB of
+    each 3-bit symbol first, demod.c:274), XOR the PRBS."""
+    B, S = symbols.shape
+    dev = symbols.device
+    shifts = torch.tensor([2, 1, 0], dtype=torch.int32, device=dev)
+    bits = ((_i32(symbols)[:, :, None] >> shifts) & 1).reshape(B, 3 * S)
+    return bits[:, lo:hi] ^ _i32(_tables(dev)["prbs"][lo:hi])[None, :]
+
+
+def _check(name: str, x: torch.Tensor, dtype, dim: int,
+           device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype or x.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D {dtype}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_symbols(symbols: torch.Tensor) -> None:
+    _check("symbols", symbols, torch.uint8, 2, symbols.device)
+    S = symbols.shape[1]
+    if not MIN_SYMBOLS <= S <= PRBS.size // 3:
+        raise ValueError(f"symbols have {S} columns, need "
+                         f"{MIN_SYMBOLS}..{PRBS.size // 3}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launcher(name: str, argtypes: list):
+    from .. import kernels
+    fn = getattr(kernels.load("l2"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+# ------------------------------------------------------------------ L2H
+def l2_header_plain(symbols: torch.Tensor) -> dict:
+    """Plain L2H: the header and geometry of each burst.
+
+    ``symbols`` (B, S) uint8 gray-decoded 3-bit symbols.  Returns a dict
+    of (B,) tensors: ``syndrome``, ``synd_weight``, ``datalen``,
+    ``datalen_octets``, ``num_blocks``, ``last_len``,
+    ``bits_consumed`` and ``lf`` (the last RS row's parity count; 6 for
+    a full final block) int32; ``reserved_bad``, ``too_long``,
+    ``no_fec``, ``hdr_ok`` bool.  Arithmetic is int32, as in the JAX
+    code.
+    """
+    dev = symbols.device
+    tb = _tables(dev)
+    clear = _clear_bits(symbols, 0, HEADER_LEN)
+
+    # ---- (25,20) header FEC (decode.c:111-122) ----------------------
+    w_hdr = 1 << torch.arange(HEADER_LEN - 1, -1, -1, dtype=torch.int32,
+                              device=dev)
+    word = (clear * w_hdr[None, :]).sum(dim=1, dtype=torch.int32)
+    word = word & ((1 << (TRLEN + HDRFECLEN)) - 1)      # zero reserved bits
+    synd = torch.zeros_like(word)
+    for i, row in enumerate(H_ROWS):
+        synd = synd | (_parity32(word & row) << (HDRFECLEN - 1 - i))
+    corrected = word ^ tb["synd"][synd.long()]
+    weight = tb["weight"][synd.long()]
+    reserved_bad = (corrected >> (TRLEN + HDRFECLEN)) != 0
+
+    trfield = (corrected >> HDRFECLEN) & ((1 << TRLEN) - 1)
+    datalen = torch.zeros_like(trfield)
+    for i in range(TRLEN):                              # bit-reverse TRLEN
+        datalen = datalen | (((trfield >> i) & 1) << (TRLEN - 1 - i))
+    too_long = ((synd != 0) & (datalen > MAX_FRAME_LENGTH_CORRECTED)) \
+        | (datalen > MAX_FRAME_LENGTH)
+
+    # ---- geometry (burst_geometry / decode.c:222-258) ----------------
+    doct = torch.div(datalen + 7, 8, rounding_mode="floor")
+    q = torch.div(doct, RS_K, rounding_mode="floor")
+    r = doct - q * RS_K
+    num_blocks = _i32(q + (r != 0).to(torch.int32))
+    last_len = _i32(torch.where(r == 0, RS_K, r))
+    fec_last = _i32(torch.where(r == 0, 0, _fec_octetcount(r)))
+    fec_total = _i32(q * (RS_N - RS_K) + fec_last)
+    no_fec = fec_total == 0
+    hdr_ok = ~reserved_bad & ~too_long & ~no_fec
+    # last row's parity count (r == 0 -> full 6-octet final block)
+    lf = _i32(torch.where(r == 0, RS_N - RS_K, fec_last))
+    bits_consumed = _i32(HEADER_LEN + 8 * (doct + fec_total))
+    return {"syndrome": synd, "synd_weight": weight,
+            "reserved_bad": reserved_bad, "too_long": too_long,
+            "no_fec": no_fec, "hdr_ok": hdr_ok, "datalen": datalen,
+            "datalen_octets": _i32(doct), "num_blocks": num_blocks,
+            "last_len": last_len, "bits_consumed": bits_consumed,
+            "lf": lf}
+
+
+def l2_header_cuda(symbols: torch.Tensor) -> dict:
+    """Launch kernel L2H on the current stream (no fallback).  Argument
+    and results as :func:`l2_header_plain`."""
+    dev = symbols.device
+    if dev.type != "cuda":
+        raise ValueError("l2_header_cuda needs CUDA tensors")
+    _check_symbols(symbols)
+    B, S = symbols.shape
+    tb = _tables(dev)
+    # one allocation: the int32 results, then the bool ones
+    n_int = len(HDR_INT) * B
+    out = torch.empty(n_int + (len(HDR_BOOL) * B + 3) // 4,
+                      dtype=torch.int32, device=dev)
+    ints = out[:n_int].split(B)
+    bools = [x.view(torch.bool) for x in
+             out[n_int:].view(torch.uint8)[:len(HDR_BOOL) * B].split(B)]
+    fn = _launcher("l2_header_launch",
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 7)
+    with torch.cuda.device(dev):
+        rc = fn(symbols.data_ptr(), B, S, tb["synd"].data_ptr(),
+                tb["weight"].data_ptr(), tb["h_rows"].data_ptr(),
+                tb["prbs"].data_ptr(), out.data_ptr(),
+                out[n_int:].data_ptr(), _stream(symbols))
+    _raise_on(rc, "l2_header")
+    launches["l2_header"] += 1
+    return {**dict(zip(HDR_INT, ints)), **dict(zip(HDR_BOOL, bools))}
+
+
+def l2_header(symbols: torch.Tensor) -> dict:
+    """L2H on the tensor's device: the kernel on CUDA, plain on CPU."""
+    if _device_of(symbols) == "cuda":
+        return l2_header_cuda(symbols)
+    return l2_header_plain(symbols)
+
+
+# ------------------------------------------------------------------ L2D
+def l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                          doct) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain L2D: the deinterleaved RS table of each selected burst.
+
+    ``symbols`` (B, S) uint8; ``sel`` (Bp,) int64 the rows to decode,
+    or None for all B; ``hdr_ok`` (B,) bool and ``num_blocks``,
+    ``last_len``, ``lf``, ``doct`` (B,) int32 L2H's results.  Returns
+    ``(tab (Bp, 9, 255) uint8, fec_row (Bp, 9) int32)``: cell (row, col)
+    of a burst's table holds the descrambled octet at transmission index
+    col*(nb-1) + min(col, last_len) + row (data) or the FEC region's
+    counterpart, 0 in pad cells and for rejected bursts; ``fec_row`` the
+    parity octets present in each row (0 = skip RS).
+    """
+    dev = symbols.device
+    nb = _i32(torch.where(hdr_ok, num_blocks, 0))
+    if sel is not None:
+        symbols, nb, hdr_ok = symbols[sel], nb[sel], hdr_ok[sel]
+        last_len, lf, doct = last_len[sel], lf[sel], doct[sel]
+    Bp = symbols.shape[0]
+
+    # ---- octet packing (LSB-first, bitstream_read_lsbfirst order) ----
+    w_oct = 1 << torch.arange(8, dtype=torch.int32, device=dev)
+    po = _clear_bits(symbols, HEADER_LEN, HEADER_LEN + 8 * MAX_TOTAL_OCT)
+    octets = (po.reshape(Bp, MAX_TOTAL_OCT, 8) * w_oct).sum(
+        dim=2, dtype=torch.int32)                       # (Bp, 2100)
+
+    # ---- deinterleave as a gather (fec/interleave.py mapping) --------
+    # Destination cell (row, col) of the (nb, 255) table takes
+    # transmission index  col*(nb-1) + min(col, cpr) + row.
+    rows = torch.arange(MAX_BLOCKS, dtype=torch.int32, device=dev)[None, :, None]
+    cols = torch.arange(RS_N, dtype=torch.int32, device=dev)[None, None, :]
+    nb_ = nb[:, None, None]
+    ll_ = torch.where(hdr_ok, last_len, 0)[:, None, None]
+    lf_ = torch.where(hdr_ok, lf, 0)[:, None, None]
+    doct_ = torch.where(hdr_ok, doct, 0)[:, None, None]
+
+    is_data = cols < RS_K
+    cf = cols - RS_K                                    # FEC-region column
+    src_data = cols * (nb_ - 1) + torch.minimum(cols, ll_) + rows
+    src_fec = doct_ + cf * (nb_ - 1) + torch.minimum(cf, lf_) + rows
+    src = torch.where(is_data, src_data, src_fec)
+    cpr = torch.where(is_data,
+                      torch.where(rows < nb_ - 1, RS_K, ll_),
+                      torch.where(rows < nb_ - 1, RS_N - RS_K, lf_))
+    valid = (rows < nb_) & (torch.where(is_data, cols, cf) < cpr)
+    src = torch.clamp(torch.where(valid, src, 0), 0, MAX_TOTAL_OCT - 1)
+    tab = torch.gather(octets, 1, src.reshape(Bp, -1).long())
+    tab = tab.reshape(Bp, MAX_BLOCKS, RS_N) * valid     # pad cells zero
+
+    rows1 = rows[0, :, 0]
+    row_is_last = rows1 == (nb[:, None] - 1)            # (Bp, MAX_BLOCKS)
+    fec_row = torch.where(rows1 < nb[:, None] - 1, RS_N - RS_K,
+                          torch.where(row_is_last, lf[:, None], 0))
+    fec_row = _i32(torch.where(hdr_ok[:, None], fec_row, 0))
+    return tab.to(torch.uint8), fec_row
+
+
+def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                         doct) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel L2D on the current stream (no fallback).  Arguments
+    and results as :func:`l2_deinterleave_plain`."""
+    dev = symbols.device
+    if dev.type != "cuda":
+        raise ValueError("l2_deinterleave_cuda needs CUDA tensors")
+    _check_symbols(symbols)
+    B, S = symbols.shape
+    _check("hdr_ok", hdr_ok, torch.bool, 1, dev)
+    geom = (num_blocks, last_len, lf, doct)
+    for name, x in zip(("num_blocks", "last_len", "lf", "doct"), geom):
+        _check(name, x, torch.int32, 1, dev)
+    if any(x.shape[0] != B for x in (hdr_ok, *geom)):
+        raise ValueError(f"per-burst arrays must have {B} rows")
+    if sel is not None:
+        _check("sel", sel, torch.int64, 1, dev)
+    Bp = B if sel is None else sel.shape[0]
+    tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
+    fec_row = torch.empty((Bp, MAX_BLOCKS), dtype=torch.int32, device=dev)
+    fn = _launcher("l2_deinterleave_launch",
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int] + [ctypes.c_void_p] * 9)
+    with torch.cuda.device(dev):
+        rc = fn(symbols.data_ptr(), S,
+                None if sel is None else sel.data_ptr(), Bp,
+                hdr_ok.data_ptr(), *(x.data_ptr() for x in geom),
+                _tables(dev)["prbs"].data_ptr(), tab.data_ptr(),
+                fec_row.data_ptr(), _stream(symbols))
+    _raise_on(rc, "l2_deinterleave")
+    launches["l2_deinterleave"] += 1
+    return tab, fec_row
+
+
+def l2_deinterleave(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """L2D on the tensors' device: the kernel on CUDA, plain on CPU.
+    Arguments as :func:`l2_deinterleave_plain`."""
+    if _device_of(symbols) == "cuda":
+        return l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks,
+                                    last_len, lf, doct)
+    return l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks,
+                                 last_len, lf, doct)
+
+
+# ------------------------------------------------------------------- RS
+def rs_verify_plain(blocks: torch.Tensor, fec_octets: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain RS: batched rs_verify (reference rs.c:32-49).
+
+    ``blocks`` (N, 255) uint8 (or int32 octets), ``fec_octets`` (N,)
+    int32 the parity octets present.  Shortened final blocks declare
+    their absent parity positions as erasures; fec_octets == 0 skips
+    FEC entirely.  Returns ``(corrected (N, 255) uint8, count (N,)
+    int32)``: count is the corrected positions, 0 for a skipped row or a
+    zero syndrome, -1 for a failure (the row then passes through)."""
+    dev = blocks.device
+    fec_octets = fec_octets.to(torch.int32)
+    cnt = NROOTS - fec_octets                              # erasures
+    pos = KK + fec_octets[:, None] + torch.arange(
+        NROOTS, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.clamp(pos, 0, NN - 1)
+    corrected, count = rs_decode_batch(blocks, pos, cnt)
+    skip = fec_octets == 0
+    corrected = torch.where(skip[:, None], blocks.to(torch.uint8), corrected)
+    count = torch.where(skip, 0, count)
+    return corrected, count.to(torch.int32)
+
+
+def rs_verify_cuda(blocks: torch.Tensor, fec_octets: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel RS on the current stream (no fallback).  ``blocks``
+    (N, 255) uint8; arguments and results otherwise as
+    :func:`rs_verify_plain`."""
+    dev = blocks.device
+    if dev.type != "cuda":
+        raise ValueError("rs_verify_cuda needs CUDA tensors")
+    _check("blocks", blocks, torch.uint8, 2, dev)
+    _check("fec_octets", fec_octets, torch.int32, 1, dev)
+    N = blocks.shape[0]
+    if blocks.shape[1] != RS_N or fec_octets.shape[0] != N:
+        raise ValueError(f"blocks must be (N, {RS_N}) with N fec_octets, "
+                         f"got {tuple(blocks.shape)}, "
+                         f"{tuple(fec_octets.shape)}")
+    tb = _tables(dev)
+    out = torch.empty_like(blocks)
+    count = torch.empty(N, dtype=torch.int32, device=dev)
+    fn = _launcher("rs_verify_launch",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5)
+    with torch.cuda.device(dev):
+        rc = fn(blocks.data_ptr(), fec_octets.data_ptr(), N,
+                tb["alpha_to"].data_ptr(), tb["index_of"].data_ptr(),
+                out.data_ptr(), count.data_ptr(), _stream(blocks))
+    _raise_on(rc, "rs_verify")
+    launches["rs_verify"] += 1
+    return out, count
+
+
+def rs_verify(blocks: torch.Tensor, fec_octets: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RS on the tensors' device: the kernel on CUDA, plain on CPU.
+    Arguments as :func:`rs_verify_plain`."""
+    if _device_of(blocks) == "cuda":
+        return rs_verify_cuda(blocks, fec_octets)
+    return rs_verify_plain(blocks, fec_octets)

@@ -65,6 +65,25 @@ def encode(data: np.ndarray) -> np.ndarray:
     return np.concatenate([data, rem]).astype(np.uint8)
 
 
+def encode_batch(data: np.ndarray) -> np.ndarray:
+    """:func:`encode` of each row of ``data`` (n, 249): (n, 255) uint8
+    codewords, by the same long division, vectorized over the rows."""
+    data = np.asarray(data, dtype=np.int32)
+    if data.ndim != 2 or data.shape[1] != KK:
+        raise ValueError("encode_batch expects (n, 249) data octets")
+    rem = np.zeros((data.shape[0], NROOTS), dtype=np.int32)
+    glog = [int(INDEX_OF[int(GENPOLY[NROOTS - 1 - i])]) for i in range(NROOTS)]
+    for col in range(KK):
+        feedback = data[:, col] ^ rem[:, 0]
+        rem = np.concatenate([rem[:, 1:], np.zeros_like(rem[:, :1])], axis=1)
+        flog = INDEX_OF[feedback]
+        for i in range(NROOTS):
+            if glog[i] != A0:
+                rem[:, i] ^= np.where(feedback != 0,
+                                      ALPHA_TO[(flog + glog[i]) % GF_SIZE], 0)
+    return np.concatenate([data, rem], axis=1).astype(np.uint8)
+
+
 def _syndromes(cw: np.ndarray) -> np.ndarray:
     s = np.zeros(NROOTS, dtype=np.int32)
     for i in range(NROOTS):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .gf256 import A0, ALPHA_TO, GF_SIZE, INDEX_OF, gf_mul
-from .rs import FCR, KK, NN, NROOTS
+from .rs import FCR, NN, NROOTS
 
 _SPOW = np.zeros((NROOTS, NN), dtype=np.int32)
 for _i in range(NROOTS):
@@ -229,15 +229,10 @@ def rs_verify_batch(blocks: torch.Tensor, fec_octets: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched rs_verify (reference rs.c:32-49): shortened final blocks
     declare their absent parity positions as erasures; fec_octets == 0
-    skips FEC entirely."""
-    dev = blocks.device
-    fec_octets = fec_octets.to(torch.int32)
-    cnt = NROOTS - fec_octets                              # erasures
-    pos = KK + fec_octets[:, None] + torch.arange(
-        NROOTS, dtype=torch.int32, device=dev)[None, :]
-    pos = torch.clamp(pos, 0, NN - 1)
-    corrected, count = rs_decode_batch(blocks, pos, cnt)
-    skip = fec_octets == 0
-    corrected = torch.where(skip[:, None], blocks.to(torch.uint8), corrected)
-    count = torch.where(skip, 0, count)
-    return corrected, count.to(torch.int32)
+    skips FEC entirely.  Kernel RS on CUDA, its plain twin on the CPU
+    (fec/l2_kernel.py)."""
+    from .l2_kernel import rs_verify      # l2_kernel imports this module
+    if blocks.device.type == "cuda":
+        blocks = blocks.to(torch.uint8).contiguous()
+        fec_octets = fec_octets.to(torch.int32).contiguous()
+    return rs_verify(blocks, fec_octets)

@@ -64,6 +64,48 @@ def interleave_burst(rs_tab: np.ndarray, datalen_octets: int) -> np.ndarray:
     return np.concatenate(out)
 
 
+# rs_fuzz's cases, in turn: (parity octets present, fewest and most
+# random symbol errors); the absent parity octets of a shortened row are
+# zero, as the deinterleave leaves them
+RS_FUZZ_CASES = (
+    (6, 0, 3),       # full block, correctable
+    (4, 0, 2),       # shortened, 2 erasures + up to 2 errors
+    (2, 0, 1),       # shortened, 4 erasures + up to 1 error
+    (6, 4, 20),      # beyond capacity: mostly failures (-1)
+    (4, 3, 12),      # shortened, beyond capacity
+    (6, 0, 0),       # zero syndrome (a clean codeword)
+    (0, 0, 20),      # no parity: RS skipped, bytes through
+    (-1, 0, 3),      # odd and out-of-range counts (1, 3, 5, 7, -1)
+)
+
+
+def rs_fuzz(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded rows for the RS decoder (rs_verify): ``(rows (n, 255)
+    uint8, fec_octets (n,) int32)``, row i of case
+    ``RS_FUZZ_CASES[i % 8]``: a codeword of random data, its absent
+    parity zeroed, with random symbol errors at random positions (some
+    rows of the zero-syndrome case are all zero)."""
+    rng = np.random.default_rng(seed)
+    rows = rs.encode_batch(rng.integers(0, 256, (n, RS_K), dtype=np.uint8))
+    case = np.arange(n) % len(RS_FUZZ_CASES)
+    spec = np.array(RS_FUZZ_CASES)[case]
+    fec = spec[:, 0].astype(np.int32)
+    odd = fec < 0
+    fec[odd] = rng.choice(np.array([1, 3, 5, 7, -1], np.int32),
+                          size=int(odd.sum()))
+    pos = np.arange(RS_N)[None, :]
+    absent = (fec > 0)[:, None] & (pos >= RS_K + fec[:, None])
+    rows[absent] = 0
+    rows[(spec[:, 2] == 0) & (rng.random(n) < 0.1)] = 0
+    n_err = rng.integers(spec[:, 1], spec[:, 2] + 1)
+    where = np.argsort(rng.random((n, RS_N)), axis=1)[:, :int(n_err.max())]
+    hit = np.arange(where.shape[1])[None, :] < n_err[:, None]
+    flips = rng.integers(1, 256, where.shape, dtype=np.uint8) * hit
+    np.bitwise_xor.at(rows, (np.repeat(np.arange(n), where.shape[1]),
+                             where.reshape(-1)), flips.reshape(-1))
+    return rows, fec
+
+
 def build_header(datalen_bits: int) -> np.ndarray:
     """25 header bits (MSB-first order) with valid FEC, reserved bits 0."""
     trfield = 0
@@ -132,6 +174,48 @@ def bits_to_symbols(bits: np.ndarray) -> np.ndarray:
     for idx, g in enumerate(GRAYCODE):
         inv_gray[g] = idx
     return inv_gray[sym]
+
+
+def bits_to_symbol_row(bits: np.ndarray, max_symbols: int,
+                       rng: np.random.Generator) -> np.ndarray:
+    """A burst's scrambled bits as one (max_symbols,) uint8 row of 3-bit
+    symbols (MSB first), padded with random bits: what the L2 decode
+    takes."""
+    pad = 3 * max_symbols - bits.size
+    bits = np.concatenate([bits, rng.integers(0, 2, pad, dtype=np.uint8)])
+    tri = bits.reshape(max_symbols, 3)
+    return ((tri[:, 0] << 2) | (tri[:, 1] << 1) | tri[:, 2]).astype(np.uint8)
+
+
+def l2_fuzz(n: int, seed: int, max_symbols: int = 5616) -> np.ndarray:
+    """Seeded (n, max_symbols) uint8 symbol rows for the L2 decode, row i
+    of case i % 4: a clean burst of 1 to 9 RS blocks (one frame), the
+    same with 1 to 12 random bit flips (header errors, correctable and
+    uncorrectable RS rows), a row of noise, and a burst of 1 to 3 short
+    frames; row 3 is the 1990-octet near-cap burst."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        case = i % 4
+        if case == 2:
+            rows.append(rng.integers(0, 8, max_symbols, dtype=np.uint8))
+            continue
+        if i == 3:
+            sizes = [1990]
+        elif case == 3:
+            sizes = list(rng.integers(1, 120, int(rng.integers(1, 4))))
+        else:
+            blocks = int(rng.integers(1, 10))
+            sizes = [int(rng.integers(max(1, (blocks - 1) * RS_K - 40),
+                                      min(1990, blocks * RS_K - 60)))]
+        bits = build_burst_bits([bytes(rng.integers(0, 256, int(s),
+                                                    dtype=np.uint8))
+                                 for s in sizes])
+        if case == 1:
+            flips = rng.integers(0, bits.size, int(rng.integers(1, 13)))
+            bits[flips] ^= 1
+        rows.append(bits_to_symbol_row(bits, max_symbols, rng))
+    return np.stack(rows)
 
 
 def synthesize_iq_raw(frames: list[bytes], oversample: int = 10,
