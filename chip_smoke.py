@@ -29,17 +29,23 @@ Phases (each must pass; any failure exits non-zero):
    count and the crossing columns equal, the floats within rtol 1e-5,
    atol 1e-7.  Device (profiler) and wrapper-call times, the plain
    versions' times and the bounds;
-4. L2H, L2D and RS (the L2 kernels, csrc/l2.cu) against their plain
-   PyTorch versions on the card, every integer and byte equal: the
-   wideband scene's real L2 inputs on the sliced path (l2_sliced,
-   rs_burst_cap) and at EOF (launch_compacted_l2), 24 000 RS rows of
-   sim.rs_fuzz (0-20 errors, erasures, zero syndromes, fec_octets 0-7
-   and -1), 384 symbol rows of sim.l2_fuzz (bursts of 1-9 RS blocks,
-   damaged bursts, noise) with and without the compaction, and the
-   vector's near-cap burst, which must decode through the kernels;
-   l2_decode_batch on the card equal to the CPU's; each kernel's device
-   (profiler) and wrapper-call times, its plain version's and its bound
-   at the sliced block's shapes;
+4. L2H, L2P, L2D and RS (the L2 kernels, csrc/l2.cu; L2P is the main
+   path's payload stage, L2D and RS the stages' own entry points, built
+   on its device functions) against their plain PyTorch versions on the
+   card, every integer and byte equal: the wideband scene's real L2
+   inputs on the sliced path (l2_sliced, rs_burst_cap) and at EOF
+   (launch_compacted_l2), L2D and RS on L2P's arguments and L2D's
+   tables; 24 000 RS rows of sim.rs_fuzz (0-20 errors, erasures, zero
+   syndromes, fec_octets 0-7 and -1); 384 symbol rows of sim.l2_fuzz
+   (bursts of 1-9 RS blocks, damaged bursts, noise) and 256 of
+   sim.l2_rs_fuzz (bursts whose RS rows carry the RS fuzz's cases),
+   with and without the compaction; L2P with odd and out-of-range
+   parity counts (count 6 and -1 through the table); and the vector's
+   near-cap burst, which must decode through the kernels;
+   l2_decode_batch on the card equal to the CPU's; the card's floor for
+   a launch (a one-element fill_); each kernel's device (profiler) and
+   wrapper-call times, its plain version's and its bound at the sliced
+   block's and the flush's shapes, L2P beside L2D + RS;
 5. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
@@ -47,17 +53,18 @@ Phases (each must pass; any failure exits non-zero):
 6. wideband main path, device-gated (the default): 256 channels at
    oversample 80 (8.4 Msps), six device-resident blocks of 4 194 240
    samples with 24 bursts on stride-4 channels through feed_planar +
-   finish; all 24 payloads must decode; K1, G1, G2, L2H, L2D and RS
-   must each have launched 7 times on that run (6 blocks + EOF), and no
-   plain version of a gate or L2 kernel may have run; the native
+   finish; all 24 payloads must decode; K1, G1, G2, L2H and L2P must
+   each have launched 7 times on that run (6 blocks + EOF), L2D and RS
+   never, and no plain version of a gate or L2 kernel may have run; the native
    library's unstuffing must have been called on that run and the
    Python spec (_frames_py) never.  Prints the sustained ingest rate,
    the realtime factor, the per-block step breakdown, the finish() time
    and peak device memory;
 7. the host-gated path (device_gate=False) on the same scene: all its
    payloads must decode and its frames equal the gated run's (bytes and
-   freq exact, nf_pwr_dbfs within 1e-4 dB), L2H, L2D and RS must each
-   have launched and no plain version of an L2 kernel run; its realtime
+   freq exact, nf_pwr_dbfs within 1e-4 dB), L2H and L2P must each have
+   launched, L2D and RS never, and no plain version of an L2 kernel
+   run; its realtime
    factor and breakdown beside the gated ones;
 8. the CLI on the card: the correctness vector written as an S16_LE file
    and decoded by ``python3 -m dumpvdl2_tpu_torch`` (default platform,
@@ -73,7 +80,7 @@ Phases (each must pass; any failure exits non-zero):
    plain version on every shard's phase plane of a real block ((256,
    H + Ml + F) at (1, 2), (128, H + Ml + F) at (2, 2); identical
    detection masks) and G1 on that block's real merged (C, Tn*K) grid,
-   and L2H, L2D and RS on the mesh's real L2 inputs (launch_compacted_l2
+   and L2H, L2P, L2D and RS on the mesh's real L2 inputs (launch_compacted_l2
    over every shard's slots, a block and at EOF); then the mesh path
    (MeshPipeline,
    device-gated) on the whole wideband scene at mesh shapes (1, 2) and
@@ -81,8 +88,8 @@ Phases (each must pass; any failure exits non-zero):
    cuda:0 repeated: 24/24 payloads, the
    frames equal to the single-device gated run's (bytes, freq and idx
    exact, nf_pwr_dbfs within 1e-4 dB); K1 launched once per shard a
-   block plus once at EOF, G1, G2, L2H, L2D and RS once a block plus
-   once at EOF, no plain version run.  Realtime factor, peak memory, the blocks re-read
+   block plus once at EOF, G1, G2, L2H and L2P once a block plus once
+   at EOF, L2D and RS never, no plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
 11. the multi-process path (parallel/multihost.py): ``init_distributed()``
    is a no-op without WORLD_SIZE; two ranks of
@@ -191,16 +198,21 @@ G2_OPS_PER_READ = 18
 # burst's table (the index arithmetic, a compare, a select, the store).
 # RS per syndrome term (a table lookup and an XOR, 6 a position of a row
 # with parity) and per Chien and Forney term (7 a position of a row with
-# a nonzero syndrome).  All three move more bytes than they issue
-# instructions.
+# a nonzero syndrome).  L2P does L2D's and RS's.  All move more bytes
+# than they issue instructions.
 L2H_OPS_PER_BURST = 60
 L2D_OPS_PER_OCTET = 16
 L2D_OPS_PER_CELL = 6
 RS_OPS_PER_TERM = 2
-L2_KERNELS = ("l2_header", "l2_deinterleave", "rs_verify")
+# The L2 kernels of the main path (the names fec/l2.py imports), and
+# those built on L2P's device functions for the stages' own entry points,
+# which must not launch there.
+L2_KERNELS = ("l2_header", "l2_payload")
+L2_STANDALONE = ("l2_deinterleave", "rs_verify")
 # The L2 kernels' plain versions and their stages: none may run on the
 # card's main path.
-L2_PLAIN = ("l2_header_plain", "l2_deinterleave_plain", "rs_verify_plain",
+L2_PLAIN = ("l2_header_plain", "l2_payload_plain", "l2_deinterleave_plain",
+            "rs_verify_plain",
             "rs_decode_batch", "_clear_bits")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -699,11 +711,12 @@ def l2h_bound(B: int, sms: int, clock_hz: float) -> dict:
                   clock_hz)
 
 
-def l2d_bound(args: tuple, sms: int, clock_hz: float) -> dict:
-    """Least time for L2D on these inputs: each accepted burst's symbols
-    up to its last parity octet, the geometry (17 bytes a burst, 8 more
-    for the row index), the (Bp, 9, 255) table and (Bp, 9) parity counts
-    out; the octets those bursts pack and their table cells."""
+def l2d_work(args: tuple) -> tuple[int, int]:
+    """L2D's bytes and least instructions on these inputs: each accepted
+    burst's symbols up to its last parity octet, the geometry (17 bytes
+    a burst, 8 more for the row index), the (Bp, 9, 255) table and
+    (Bp, 9) parity counts out; the octets those bursts pack and their
+    table cells."""
     _, l2_kernel = l2_modules()
     symbols, sel, hdr_ok, num_blocks, _ll, lf, doct = args
     rows = torch.arange(symbols.shape[0], device=symbols.device) \
@@ -718,20 +731,41 @@ def l2d_bound(args: tuple, sms: int, clock_hz: float) -> dict:
         + (l2_kernel.MAX_BLOCKS * (255 + 4)) * Bp
     ops = L2D_OPS_PER_OCTET * int(octets.sum().item()) \
         + L2D_OPS_PER_CELL * l2_kernel.MAX_BLOCKS * 255 * n_acc
-    return _bound(nbytes, ops, sms, clock_hz)
+    return nbytes, ops
+
+
+def l2d_bound(args: tuple, sms: int, clock_hz: float) -> dict:
+    """Least time for L2D on these inputs (l2d_work)."""
+    return _bound(*l2d_work(args), sms, clock_hz)
+
+
+def rs_ops(fec: torch.Tensor, count: torch.Tensor) -> int:
+    """RS's least instructions on these rows: 6 syndrome terms a
+    position of a row with parity, 7 Chien and Forney terms a position
+    of a row with a nonzero syndrome (count != 0)."""
+    with_parity = int((fec != 0).sum().item())
+    nonzero = int(((fec != 0) & (count != 0)).sum().item())
+    return RS_OPS_PER_TERM * 255 * (6 * with_parity + 7 * nonzero)
 
 
 def rs_bound(fec: torch.Tensor, count: torch.Tensor, sms: int,
              clock_hz: float) -> dict:
     """Least time for RS on these rows: each row in and out (255 bytes
-    and its parity count; 255 bytes and its count), 6 syndrome terms a
-    position of a row with parity, 7 Chien and Forney terms a position
-    of a row with a nonzero syndrome (count != 0)."""
-    N = fec.shape[0]
-    with_parity = int((fec != 0).sum().item())
-    nonzero = int(((fec != 0) & (count != 0)).sum().item())
-    ops = RS_OPS_PER_TERM * 255 * (6 * with_parity + 7 * nonzero)
-    return _bound((2 * 255 + 8) * N, ops, sms, clock_hz)
+    and its parity count; 255 bytes and its count) and rs_ops."""
+    return _bound((2 * 255 + 8) * fec.shape[0], rs_ops(fec, count), sms,
+                  clock_hz)
+
+
+def l2p_bound(args: tuple, fec_row: torch.Tensor, count: torch.Tensor,
+              sms: int, clock_hz: float) -> dict:
+    """Least time for L2P on these inputs: L2D's bytes (its inputs, the
+    table and parity counts written once) and the RS counts written
+    once; L2D's operations and RS's on the table's rows (``fec_row`` and
+    ``count`` L2P's results)."""
+    nbytes, ops = l2d_work(args)
+    return _bound(nbytes + 4 * count.numel(),
+                  ops + rs_ops(fec_row.reshape(-1), count.reshape(-1)),
+                  sms, clock_hz)
 
 
 def compare_l2h(symbols: torch.Tensor, label: str) -> dict:
@@ -787,10 +821,32 @@ def compare_rs(blocks: torch.Tensor, fec: torch.Tensor, label: str
             "by_count": {int(v): int(c) for v, c in zip(vals, n)}}
 
 
+def compare_l2p(args: tuple, label: str) -> dict:
+    """L2P against its plain version: corrected table, counts and parity
+    counts equal, dtypes too.  Returns the rows with parity by count."""
+    _, l2_kernel = l2_modules()
+    k = l2_kernel.l2_payload_cuda(*args)
+    p = l2_kernel.l2_payload_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("table", "counts", "fec_row"), k, p):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(dim=1) \
+                if a.shape == b.shape else None
+            raise AssertionError(
+                f"L2P differs from its plain version on {label}: {name} "
+                f"({'shape' if bad is None else int(bad.sum().item())} "
+                f"bursts)")
+    _, counts, fec_row = p
+    vals, n = torch.unique(counts[fec_row != 0], return_counts=True)
+    return {"rows": counts.shape[0],
+            "rs_rows": int((fec_row != 0).sum().item()),
+            "by_count": {int(v): int(c) for v, c in zip(vals, n)}}
+
+
 def capture_l2_inputs(scene, mesh_shape=None) -> dict:
-    """The arguments L2H, L2D and RS get on the gated wideband path,
-    keyed (stage, kernel): stage "block" the second block's (the sliced
-    path, l2_sliced with rs_burst_cap), "eof" the flush's (finish(),
+    """The arguments L2H and L2P get on the gated wideband path, keyed
+    (stage, kernel): stage "block" the second block's (the sliced path,
+    l2_sliced with rs_burst_cap), "eof" the flush's (finish(),
     launch_compacted_l2, uncapped).  With ``mesh_shape`` the mesh's
     (launch_compacted_l2 over every shard's slots)."""
     from dumpvdl2_tpu_torch.core.mesh_pipeline import MeshPipeline
@@ -827,35 +883,102 @@ def capture_l2_inputs(scene, mesh_shape=None) -> dict:
     return got
 
 
+def rs_rows_of(p_args: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """RS's rows and parity counts for L2P's arguments: L2D's tables."""
+    _, l2_kernel = l2_modules()
+    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*p_args)
+    return tab.reshape(-1, 255), fec_row.reshape(-1)
+
+
+def check_payload(p_args: tuple, label: str) -> dict:
+    """L2P, L2D and RS (on L2D's tables) against their plain versions."""
+    p = compare_l2p(p_args, label)
+    d = compare_l2d(p_args, label)
+    blocks, fec = rs_rows_of(p_args)
+    r = compare_rs(blocks, fec, label)
+    return {"l2p": p, "l2d": d, "rs": r, "rs_rows": list(blocks.shape)}
+
+
 def check_l2_captured(got: dict, label: str) -> dict:
-    """L2H, L2D and RS against their plain versions on captured real
-    inputs, at each stage's shapes."""
+    """L2H, L2P, L2D and RS against their plain versions on captured
+    real inputs, at each stage's shapes; L2D and RS take L2P's
+    arguments and L2D's tables."""
     res = {}
     for stage in ("block", "eof"):
         (sym,) = got[(stage, "l2_header")]
-        d_args = got[(stage, "l2_deinterleave")]
-        blocks, fec = got[(stage, "rs_verify")]
         h = compare_l2h(sym, f"{label} {stage}")
-        d = compare_l2d(d_args, f"{label} {stage}")
-        r = compare_rs(blocks, fec, f"{label} {stage}")
-        res[stage] = {"l2h": h, "l2d": d, "rs": r,
-                      "symbols": list(sym.shape),
-                      "table_rows": d["rows"], "rs_rows": list(blocks.shape)}
+        c = check_payload(got[(stage, "l2_payload")], f"{label} {stage}")
+        res[stage] = {"l2h": h, **c, "symbols": list(sym.shape),
+                      "table_rows": c["l2p"]["rows"]}
         log(f"L2 {label} {stage}: L2H on {tuple(sym.shape)} symbols "
-            f"({h['hdr_ok']} headers accepted), L2D on {d['rows']} bursts "
-            f"({d['rs_rows']} RS rows with parity), RS on "
-            f"{tuple(blocks.shape)} rows (by count {r['by_count']}): all "
-            f"equal to their plain versions")
+            f"({h['hdr_ok']} headers accepted), L2P on "
+            f"{c['l2p']['rows']} bursts ({c['l2p']['rs_rows']} RS rows "
+            f"with parity, by count {c['l2p']['by_count']}), L2D on the "
+            f"same and RS on its {tuple(c['rs_rows'])} rows: all equal "
+            f"to their plain versions")
     return res
 
 
+def launch_floor() -> dict:
+    """The card's floor for a launch: a one-element fill_, timed as the
+    kernels are (profiler; CUDA events over back-to-back calls when it
+    records none)."""
+    x = torch.zeros(1, device="cuda")
+    call_ms = cuda_ms(lambda: x.fill_(1.0), 200)
+    ms = device_ms(lambda: x.fill_(1.0), 50, "FillFunctor")
+    return {"ms": call_ms if ms is None else ms,
+            "ms_from": "events" if ms is None else "profiler",
+            "call_ms": call_ms}
+
+
+def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
+    """Device (profiler) and wrapper-call times, plain times and bounds
+    of L2P, L2D and RS (and L2H at the sliced block) on the captured
+    inputs of ``stage``."""
+    _, l2_kernel = l2_modules()
+    (sym,) = got[(stage, "l2_header")]
+    p_args = got[(stage, "l2_payload")]
+    blocks, fec = rs_rows_of(p_args)
+    _, count, fec_row = l2_kernel.l2_payload_cuda(*p_args)
+    Bp = fec_row.shape[0]
+    times = {
+        "l2_payload": {**time_gate(
+            lambda: l2_kernel.l2_payload_cuda(*p_args),
+            lambda: l2_kernel.l2_payload_plain(*p_args),
+            "l2_payload_kernel"),
+            **l2p_bound(p_args, fec_row, count, sms, clock),
+            "shape": [Bp, 9, 255],
+            "rows_with_parity": int((fec_row != 0).sum().item())},
+        "l2_deinterleave": {**time_gate(
+            lambda: l2_kernel.l2_deinterleave_cuda(*p_args),
+            lambda: l2_kernel.l2_deinterleave_plain(*p_args),
+            "l2_deinterleave_kernel"), **l2d_bound(p_args, sms, clock),
+            "shape": [Bp, 9, 255]},
+        "rs_verify": {**time_gate(
+            lambda: l2_kernel.rs_verify_cuda(blocks, fec),
+            lambda: l2_kernel.rs_verify_plain(blocks, fec),
+            "rs_verify_kernel"),
+            **rs_bound(fec, count.reshape(-1), sms, clock),
+            "shape": list(blocks.shape),
+            "rows_with_parity": int((fec != 0).sum().item())}}
+    if stage == "block":
+        times["l2_header"] = {**time_gate(
+            lambda: l2_kernel.l2_header_cuda(sym),
+            lambda: l2_kernel.l2_header_plain(sym), "l2_header_kernel"),
+            **l2h_bound(sym.shape[0], sms, clock),
+            "shape": list(sym.shape)}
+    return times
+
+
 def check_l2(scene) -> dict:
-    """L2H, L2D and RS against their plain versions on the card: the
-    wideband scene's real L2 inputs (sliced and EOF), a fuzz of RS rows
-    over every case of rs_verify, symbol rows of synthesized bursts and
-    noise (with the sliced path's compaction), and the near-cap burst;
-    then each kernel's device time, its plain version's and its bound
-    at the main path's shapes."""
+    """L2H, L2P, L2D and RS against their plain versions on the card:
+    the wideband scene's real L2 inputs (sliced and EOF), a fuzz of RS
+    rows over every case of rs_verify, symbol rows of synthesized bursts
+    and noise (sim.l2_fuzz) and of bursts whose rows carry the RS cases
+    (sim.l2_rs_fuzz), both with the sliced path's compaction, odd parity
+    counts through L2P, and the near-cap burst; then each kernel's
+    device time, its plain version's and its bound at the sliced and
+    EOF shapes, beside the card's floor for a launch."""
     l2_step, l2_kernel = l2_modules()
     got = capture_l2_inputs(scene)
     res = {"real": check_l2_captured(got, "wideband")}
@@ -868,30 +991,44 @@ def check_l2(scene) -> dict:
         f"errors), by count {fuzz['by_count']}: equal to its plain "
         f"version")
 
-    sym = torch.as_tensor(sim.l2_fuzz(384, seed=22), device="cuda")
-    compare_l2h(sym, "L2 fuzz")
-    hdr = l2_kernel.l2_header_plain(sym)
-    for cap in (None, 96):
-        sel = None if cap is None else torch.argsort(
-            (~hdr["hdr_ok"]).to(torch.int32), stable=True)[:cap]
-        d_args = (sym, sel, hdr["hdr_ok"], hdr["num_blocks"],
-                  hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
-        compare_l2d(d_args, f"L2 fuzz, {cap} rows selected")
-        tab, fec_row = l2_kernel.l2_deinterleave_plain(*d_args)
-        r = compare_rs(tab.reshape(-1, 255).contiguous(),
-                       fec_row.reshape(-1).contiguous(), "L2 fuzz tables")
-        log(f"L2 fuzz ({tuple(sym.shape)} symbols, {cap} rows selected): "
-            f"L2H, L2D and RS equal to their plain versions; RS rows by "
-            f"count {r['by_count']}")
-        out = l2_step.l2_decode_batch(sym, sym.shape[1],
-                                      rs_burst_cap=cap)
-        want = l2_step.l2_decode_batch(sym.cpu(), sym.shape[1],
-                                       rs_burst_cap=cap)
-        for key, v in want.items():
-            if not torch.equal(out[key].cpu(), v):
-                raise AssertionError(f"l2_decode_batch on the card differs "
-                                     f"from the CPU's: {key}")
-    res["l2_fuzz_rows"] = sym.shape[0]
+    for name, rows in (("L2 fuzz", sim.l2_fuzz(384, seed=22)),
+                       ("L2 RS fuzz", sim.l2_rs_fuzz(256, seed=24))):
+        sym = torch.as_tensor(rows, device="cuda")
+        compare_l2h(sym, name)
+        hdr = l2_kernel.l2_header_plain(sym)
+        for cap in (None, 96):
+            sel = None if cap is None else torch.argsort(
+                (~hdr["hdr_ok"]).to(torch.int32), stable=True)[:cap]
+            p_args = (sym, sel, hdr["hdr_ok"], hdr["num_blocks"],
+                      hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
+            c = check_payload(p_args, f"{name}, {cap} rows selected")
+            log(f"{name} ({tuple(sym.shape)} symbols, {cap} rows "
+                f"selected): L2H, L2P, L2D and RS equal to their plain "
+                f"versions; RS rows with parity by count "
+                f"{c['l2p']['by_count']}")
+            out = l2_step.l2_decode_batch(sym, sym.shape[1],
+                                          rs_burst_cap=cap)
+            want = l2_step.l2_decode_batch(sym.cpu(), sym.shape[1],
+                                           rs_burst_cap=cap)
+            for key, v in want.items():
+                if not torch.equal(out[key].cpu(), v):
+                    raise AssertionError(f"l2_decode_batch on the card "
+                                         f"differs from the CPU's: {key}")
+            res[f"{name}, {cap}"] = c
+        if name == "L2 RS fuzz":
+            # odd and out-of-range parity counts (RS_FUZZ_CASES[7])
+            odd = torch.as_tensor(np.random.default_rng(25).choice(
+                np.array([1, 3, 5, 7, -1], np.int32), size=sym.shape[0]),
+                device="cuda")
+            p = compare_l2p((sym, None, hdr["hdr_ok"], hdr["num_blocks"],
+                             hdr["last_len"], odd, hdr["datalen_octets"]),
+                            f"{name}, odd parity counts")
+            if 6 not in p["by_count"] or -1 not in p["by_count"]:
+                raise AssertionError(f"odd parity counts reached "
+                                     f"{p['by_count']}, not 6 and -1")
+            log(f"{name}, odd parity counts (1, 3, 5, 7, -1): L2P equal "
+                f"to its plain version; rows by count {p['by_count']}")
+            res[f"{name}, odd"] = p
 
     # the correctness vector's near-cap (1990-octet) burst
     _, _, _, _, vector = vector_signal()
@@ -901,12 +1038,9 @@ def check_l2(scene) -> dict:
         device="cuda")
     compare_l2h(near, "near-cap burst")
     hdr = l2_kernel.l2_header_plain(near)
-    d_args = (near, None, hdr["hdr_ok"], hdr["num_blocks"],
+    p_args = (near, None, hdr["hdr_ok"], hdr["num_blocks"],
               hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
-    compare_l2d(d_args, "near-cap burst")
-    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*d_args)
-    r = compare_rs(tab.reshape(-1, 255), fec_row.reshape(-1),
-                   "near-cap burst")
+    c = check_payload(p_args, "near-cap burst")
     out = l2_step.l2_decode_batch(near, near.shape[1])
     res_b = burst._result_from_batch(
         {k: v.cpu().numpy() for k, v in out.items()}, 0)
@@ -914,43 +1048,34 @@ def check_l2(scene) -> dict:
             [frame_with_fcs(vector[2][1])]:
         raise AssertionError(f"near-cap burst: {res_b.reason}")
     log(f"L2 near-cap burst: {int(hdr['num_blocks'][0])} RS blocks, "
-        f"L2H, L2D and RS equal to their plain versions (RS by count "
-        f"{r['by_count']}), the frame decodes through the kernels")
-    res["near_cap"] = {"num_blocks": int(hdr["num_blocks"][0]), **r}
+        f"L2H, L2P, L2D and RS equal to their plain versions (RS rows "
+        f"with parity by count {c['l2p']['by_count']}), the frame "
+        f"decodes through the kernels")
+    res["near_cap"] = {"num_blocks": int(hdr["num_blocks"][0]), **c}
 
-    # times and bounds at the main path's shapes: the sliced block's
+    # times and bounds at the main path's shapes: the sliced block's and
+    # the flush's, beside the card's floor for a launch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
-    (sym,) = got[("block", "l2_header")]
-    d_args = got[("block", "l2_deinterleave")]
-    blocks, fec = got[("block", "rs_verify")]
-    _, count = l2_kernel.rs_verify_cuda(blocks, fec)
-    times = {
-        "l2_header": {**time_gate(
-            lambda: l2_kernel.l2_header_cuda(sym),
-            lambda: l2_kernel.l2_header_plain(sym), "l2_header_kernel"),
-            **l2h_bound(sym.shape[0], sms, clock),
-            "shape": list(sym.shape)},
-        "l2_deinterleave": {**time_gate(
-            lambda: l2_kernel.l2_deinterleave_cuda(*d_args),
-            lambda: l2_kernel.l2_deinterleave_plain(*d_args),
-            "l2_deinterleave_kernel"), **l2d_bound(d_args, sms, clock),
-            "shape": [len(d_args[1] if d_args[1] is not None
-                          else sym), 9, 255]},
-        "rs_verify": {**time_gate(
-            lambda: l2_kernel.rs_verify_cuda(blocks, fec),
-            lambda: l2_kernel.rs_verify_plain(blocks, fec),
-            "rs_verify_kernel"), **rs_bound(fec, count, sms, clock),
-            "shape": list(blocks.shape),
-            "rows_with_parity": int((fec != 0).sum().item())}}
-    for name, t in times.items():
-        log(f"{name} at {tuple(t['shape'])}: kernel {t['ms']:.4f} ms "
-            f"({t['ms_from']}), a wrapper call {t['call_ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']}; bytes {t['bytes_ms']:.6f}, issue "
-            f"{t['ops_ms']:.6f}); {t['bound_ms'] / t['ms']:.3f} of the "
-            f"bound")
-    res["times"] = times
+    floor = launch_floor()
+    log(f"launch floor (a one-element fill_): {floor['ms']:.4f} ms "
+        f"({floor['ms_from']}), a call {floor['call_ms']:.4f} ms")
+    res["launch_floor"] = floor
+    for stage in ("block", "eof"):
+        times = time_l2(got, stage, sms, clock)
+        for name, t in times.items():
+            log(f"{name} at {stage} {tuple(t['shape'])}: kernel "
+                f"{t['ms']:.4f} ms ({t['ms_from']}), a wrapper call "
+                f"{t['call_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; bytes "
+                f"{t['bytes_ms']:.6f}, issue {t['ops_ms']:.6f}), launch "
+                f"floor {floor['ms']:.4f} ms; {t['bound_ms'] / t['ms']:.3f} "
+                f"of the bound")
+        parts = times["l2_deinterleave"]["ms"] + times["rs_verify"]["ms"]
+        log(f"L2P at {stage}: {times['l2_payload']['ms']:.4f} ms against "
+            f"L2D + RS {parts:.4f} ms in this call "
+            f"({times['l2_payload']['ms'] / parts:.3f} of it)")
+        res["times" if stage == "block" else "times_eof"] = times
     return res
 
 
@@ -1298,7 +1423,8 @@ def mesh_phase(scene, single_frames) -> dict:
         expect = {"sync_error_metric": n_shards * WIDEBAND_BLOCKS + 1,
                   "gate": WIDEBAND_BLOCKS + 1,
                   "nf_track": WIDEBAND_BLOCKS + 1,
-                  **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS}}
+                  **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
+                  **{k: 0 for k in L2_STANDALONE}}
         if launches != expect:
             raise AssertionError(f"{label} launched {launches}, expected "
                                  f"{expect}")
@@ -1516,9 +1642,11 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     if any(plain_calls.values()):
         raise AssertionError(f"wideband {mode}: plain versions of the gate "
                              f"or L2 kernels ran on the card: {plain_calls}")
-    if not all(launches[k] for k in L2_KERNELS):
-        raise AssertionError(f"wideband {mode}: an L2 kernel never "
-                             f"launched: {launches}")
+    if not all(launches[k] for k in L2_KERNELS) \
+            or any(launches[k] for k in L2_STANDALONE):
+        raise AssertionError(f"wideband {mode}: an L2 kernel of the main "
+                             f"path never launched, or another did: "
+                             f"{launches}")
 
     got = {(bytes(f.frame), f.metadata.freq) for f in frames}
     missing = [w for w in want if w not in got]
@@ -1727,13 +1855,18 @@ def main() -> int:
     k1_main = time_k1(256, 108844, seed=0)
     g1, g2 = check_gates(scene)
     l2 = check_l2(scene)
+    floor = l2["launch_floor"]["ms"]
+    for name, t in (("K1", k1_main), ("G1", g1), ("G2", g2)):
+        log(f"{name}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.6f} "
+            f"ms, launch floor {floor:.4f} ms")
 
     vec = correctness_vector()
     launches, gated_frames, wb = wideband_path(scene, device_gate=True)
     # each kernel once a block and once at EOF
     want = {"sync_error_metric": WIDEBAND_BLOCKS + 1,
             "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1,
-            **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS}}
+            **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
+            **{k: 0 for k in L2_STANDALONE}}
     if launches != want:
         raise AssertionError(f"the gated wideband path launched {launches}, "
                              f"expected {want}")
@@ -1764,6 +1897,9 @@ def main() -> int:
               "dumpvdl2_tpu/core/nf_gate.py:186", g2, g2["max_abs_err"]),
         entry("l2_header", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/l2_tpu.py:63", l2["times"]["l2_header"], 0),
+        entry("l2_payload", "dumpvdl2_tpu_torch/csrc/l2.cu",
+              "dumpvdl2_tpu/fec/l2_tpu.py:63",
+              l2["times"]["l2_payload"], 0),
         entry("l2_deinterleave", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/l2_tpu.py:63",
               l2["times"]["l2_deinterleave"], 0),

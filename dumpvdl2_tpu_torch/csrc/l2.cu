@@ -1,18 +1,19 @@
-// L2 kernels L2H (l2_header), L2D (l2_deinterleave) and RS (rs_verify)
-// for Hopper (sm_90a).
+// L2 kernels L2H (l2_header), L2P (l2_payload), L2D (l2_deinterleave)
+// and RS (rs_verify) for Hopper (sm_90a).
 //
 // These replace the XLA stages of the JAX package's L2 step, which it
 // compiles into one executable (dumpvdl2_tpu/core/pipeline.py:204,
 // fec/l2_tpu.py:63, fec/rs_tpu.py:120 and :252), not TPU kernels.  The
 // plain versions are in dumpvdl2_tpu_torch/fec/l2_kernel.py
-// (l2_header_plain, l2_deinterleave_plain, rs_verify_plain); on a CUDA
-// tensor the wrappers there launch these.  Every output is an integer
-// or a byte and equals the plain version's exactly, on any input: int32
-// sums wrap as PyTorch's do (wadd, wmul), and every GF(256) product is
-// the exact field product, however the plain version forms it (log
-// tables or carry-less shifts).  The constant tables (exp/log, the
-// header syndrome table, its weights and parity rows, the PRBS) come
-// from the port's Python tables, through the wrappers.
+// (l2_header_plain, l2_payload_plain, l2_deinterleave_plain,
+// rs_verify_plain); on a CUDA tensor the wrappers there launch these.
+// Every output is an integer or a byte and equals the plain version's
+// exactly, on any input: int32 sums wrap as PyTorch's do (wadd, wmul),
+// and every GF(256) product is the exact field product, however the
+// plain version forms it (log tables or carry-less shifts).  The
+// constant tables (exp/log, the header syndrome table, its weights and
+// parity rows, the PRBS and its octets) come from the port's Python
+// tables, through the wrappers.
 //
 // L2H l2_header replaces fec/l2_tpu.py:63's header part: the 25 header
 //   bits from the first 9 symbols, descrambled, the (25,20) header FEC,
@@ -21,39 +22,51 @@
 //   symbols a burst and writes 36 bytes: under 0.1 us for 1 024 bursts;
 //   what it takes is a launch.
 //
-// L2D l2_deinterleave replaces the payload part of the same function:
-//   octet packing and the deinterleave gather into each burst's 9 x 255
-//   RS table, and each row's parity count.  The plain version builds
-//   (B, 3 S) int32 bit planes (69 MB at B = 1 024) and a (B, 2 100)
-//   int32 octet plane to gather from.  Here a CTA takes a burst: a
-//   rejected burst (no RS row) only writes its zero table; an accepted
-//   one packs its 2 100 octets into shared memory straight from its
-//   symbols and the PRBS (8 bits an octet, from 3 or 4 symbols), then
-//   writes the table, one coalesced byte a cell.  Bound: bytes, the
-//   accepted bursts' symbols (5 616 B each) in and 2 295 B a burst out.
+// L2P l2_payload replaces the payload part of the same function and
+//   fec/rs_tpu.py:252 rs_verify_batch (with :120 rs_decode_batch) on the
+//   main path: octet packing, the deinterleave into each burst's 9 x 255
+//   RS table, each row's parity count, and the RS(255,249) errors-and-
+//   erasures decode of every row, the absent parity positions
+//   KK + fec_octets + j (clamped to NN - 1) as erasures.  The plain
+//   version builds (B, 3 S) int32 bit planes and a (B, 2 100) octet
+//   plane, gathers the table, and runs the decoder's ~2 000 batch-wide
+//   steps.  Here a CTA takes a burst, a warp each of its 9 rows, and the
+//   table never leaves shared memory:
+//   1. a rejected burst (no RS row) writes its zero table, counts and
+//      parity counts and stops;
+//   2. an accepted one stages its symbols up to its last parity octet
+//      into shared memory (16-byte cp.async for the aligned middle, bytes
+//      at the ragged ends) and, in the same wait, the constant bytes:
+//      the exp/log tables and the PRBS packed a payload octet;
+//   3. octet o is 3 or 4 shared symbol reads, a bit reversal and one XOR
+//      with its PRBS octet;
+//   4. the 9 x 255 table is the deinterleave gather of those octets;
+//   5. warp r decodes row r in place (rs_decode_row): a row without
+//      parity or with a zero syndrome stops at once;
+//   6. the table goes out in coalesced byte stores, then the counts.
+//   Geometry that no header gives (the wrapper takes any) packs all
+//   2 100 octets, so the gather's clamp reads what the plain one reads.
+//   Bound: bytes, the accepted bursts' staged symbols and the table out
+//   (2 295 B and 72 B of counts a burst); a burst is one chain of
+//   dependent steps, so what it takes is latency.
 //
-// RS rs_verify replaces fec/rs_tpu.py:252 rs_verify_batch and :120
-//   rs_decode_batch: RS(255,249) errors-and-erasures decode of each
-//   row, the absent parity positions KK + fec_octets + j (clamped to
-//   NN - 1) as erasures.  The plain version runs each step over the
-//   whole batch: ~2 000 launches, among them the 6 erasure and 6
-//   Berlekamp-Massey steps and 13 eight-step carry-less multiplies for
-//   every inverse.  Here a warp takes a row (8 rows a CTA); lane l
-//   holds positions l + 32 m (coalesced loads and stores); the exp/log
-//   tables sit in shared memory.  A row with fec_octets == 0 (pad rows,
-//   most of them) and a row with a zero syndrome pass through at once.
-//   The 6 syndromes are lane partials XOR-reduced by shuffles; every
-//   lane runs the erasure locator and BM on the same 7 coefficients in
+// L2D l2_deinterleave is L2P without step 5 (the table and the parity
+//   counts); RS rs_verify stages each row (a warp a row, 8 a CTA) from
+//   global memory into shared memory and runs the same rs_decode_row.
+//   Neither runs on the main path: L2D is the stage's own entry point
+//   and RS that of fec/rs_batch.py::rs_verify_batch.
+//
+// rs_decode_row: lane l holds positions l + 32 m.  The 6 syndromes are
+//   lane partials XOR-reduced by shuffles; every lane runs the erasure
+//   locator and Berlekamp-Massey on the same 7 coefficients in
 //   registers; Chien and Forney evaluate each lane's 8 positions; the
 //   root count is a warp sum, a zero Forney denominator at a root a
-//   warp vote.  Bound: bytes (2 x 255 + 8 a row: 1.2 MB at 2 304 rows,
-//   0.36 us); its table lookups at ~7 a position for rows with a
-//   nonzero syndrome, a few us of issue at most.
-//   Failure rules, as the plain version's: deg_lambda is the highest
-//   index with lambda != 0; omega is cut at deg_lambda - 1; the Forney
-//   denominator takes the odd lambda terms up to min(deg_lambda, 5) & ~1;
-//   a root count other than deg_lambda, a zero denominator at a root or
-//   more than 6 erasures fails the row (count -1, bytes unchanged).
+//   warp vote.  Failure rules, as the plain version's: deg_lambda is the
+//   highest index with lambda != 0; omega is cut at deg_lambda - 1; the
+//   Forney denominator takes the odd lambda terms up to
+//   min(deg_lambda, 5) & ~1; a root count other than deg_lambda, a zero
+//   denominator at a root or more than 6 erasures fails the row (count
+//   -1, bytes unchanged).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,10 +87,26 @@ constexpr int kMaxBlocks = 9;                  // MAX_BLOCKS
 constexpr int kMaxTotalOct = 2100;             // MAX_TOTAL_OCT
 constexpr int kCells = kMaxBlocks * kRsN;      // a burst's table
 
+// The constant bytes (fec/l2_kernel.py::CONST_LAYOUT): exp over two
+// periods (510, padded), log (256), the PRBS packed a payload octet
+// (2 100, padded); 16-byte chunks for cp.async.
+constexpr int kExpOff = 0;
+constexpr int kLogOff = 512;
+constexpr int kPrbsOff = 768;
+constexpr int kConstBytes = 2880;
+// A burst's staged symbols: the 5 609 of 2 100 octets after up to 15
+// bytes of row misalignment, rounded up to a 16-byte chunk.
+constexpr int kSymStage = 5632;
+
 constexpr int kHeaderThreads = 128;            // L2H: bursts a CTA
-constexpr int kDeintThreads = 256;             // L2D: threads a burst
+constexpr int kPayloadThreads = 32 * kMaxBlocks;  // L2P, L2D: a warp a row
 constexpr int kRsWarps = 8;                    // RS: rows a CTA
-constexpr int kPerLane = 8;                    // RS: positions a lane
+constexpr int kPerLane = 8;                    // positions a lane
+
+static_assert(kConstBytes % 16 == 0 && kPrbsOff % 16 == 0, "chunks");
+static_assert(kPrbsOff + kMaxTotalOct <= kConstBytes, "PRBS octets fit");
+static_assert((kHeaderLen + 8 * kMaxTotalOct + 2) / 3 + 15 <= kSymStage,
+              "a misaligned row's symbols fit");
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -107,6 +136,26 @@ __device__ __forceinline__ int clear_bit(const uint8_t* __restrict__ row,
 // get_fec_octetcount (decode.c:124-133)
 __device__ __forceinline__ int fec_octetcount(int last_len) {
   return last_len < 3 ? 0 : last_len < 31 ? 2 : last_len < 68 ? 4 : 6;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The first n constant bytes into shared memory (n a multiple of 16).
+__device__ __forceinline__ void stage_consts(uint8_t* dst,
+                                             const uint8_t* src, int n) {
+  for (int i = threadIdx.x; i < n / 16; i += blockDim.x)
+    cp_async16(dst + 16 * i, src + 16 * i);
 }
 
 // ----------------------------------------------------------------- L2H
@@ -154,61 +203,50 @@ __global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
   flags[3 * B + b] = !reserved_bad && !too_long && !no_fec;
 }
 
-// ----------------------------------------------------------------- L2D
-__global__ void __launch_bounds__(kDeintThreads) l2_deinterleave_kernel(
-    const uint8_t* __restrict__ symbols, int S,
-    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
-    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
-    const int* __restrict__ lf, const int* __restrict__ doct,
-    const uint8_t* __restrict__ prbs, uint8_t* __restrict__ tab,
-    int* __restrict__ fec_row) {
-  __shared__ uint8_t oct[kMaxTotalOct];
-  const int bp = blockIdx.x;
-  const long long src_row = sel != nullptr ? sel[bp] : bp;
-  const bool ok = hdr_ok[src_row] != 0;
-  // rejected bursts carry geometry 0
-  const int nb = ok ? num_blocks[src_row] : 0;
-  const int ll = ok ? last_len[src_row] : 0;
-  const int lfv = ok ? lf[src_row] : 0;
-  const int dl = ok ? doct[src_row] : 0;
-  const int nbm1 = wadd(nb, -1);
-  uint8_t* out = tab + static_cast<long long>(bp) * kCells;
-  if (threadIdx.x < kMaxBlocks) {
-    const int r = threadIdx.x;
-    fec_row[bp * kMaxBlocks + r] =
-        r < nbm1 ? kRsN - kRsK : r == nbm1 ? lfv : 0;
-  }
-  if (nb <= 0) {                      // no table row: every cell a pad
-    for (int c = threadIdx.x; c < kCells; c += kDeintThreads) out[c] = 0;
-    return;
-  }
-  // octet o packs descrambled bits HEADER_LEN + 8 o + t, LSB first
-  const uint8_t* row = symbols + src_row * S;
-  for (int o = threadIdx.x; o < kMaxTotalOct; o += kDeintThreads) {
-    const int p0 = kHeaderLen + 8 * o;
-    int v = 0;
-    for (int t = 0; t < 8; ++t) v |= clear_bit(row, prbs, p0 + t) << t;
-    oct[o] = static_cast<uint8_t>(v);
-  }
-  __syncthreads();
-  // cell (r, c) takes transmission index c (nb - 1) + min(c, ll) + r
-  // (data columns) or doct + cf (nb - 1) + min(cf, lf) + r (parity)
-  for (int cell = threadIdx.x; cell < kCells; cell += kDeintThreads) {
-    const int r = cell / kRsN;
-    const int c = cell - r * kRsN;
-    const bool is_data = c < kRsK;
-    const int cf = c - kRsK;
-    const int src = is_data
-        ? wadd(wadd(wmul(c, nbm1), min(c, ll)), r)
-        : wadd(wadd(wadd(dl, wmul(cf, nbm1)), min(cf, lfv)), r);
-    const int cpr = is_data ? (r < nbm1 ? kRsK : ll)
-                            : (r < nbm1 ? kRsN - kRsK : lfv);
-    const bool valid = r < nb && (is_data ? c : cf) < cpr;
-    out[cell] = valid ? oct[min(max(src, 0), kMaxTotalOct - 1)] : 0;
-  }
+// --------------------------------------------------------- L2P and L2D
+// Bytes [0, n) of a row at any alignment into dst + (src & 15), dst
+// 16-byte aligned: the aligned middle by 16-byte cp.async, the ragged
+// ends by byte.  Returns the offset of byte 0 in dst.
+__device__ __forceinline__ int stage_row(uint8_t* dst, const uint8_t* src,
+                                         int n) {
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const int head = min((16 - lead) & 15, n);
+  const int chunks = (n - head) / 16;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp_async16(dst + lead + head + 16 * i, src + head + 16 * i);
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    dst[lead + i] = src[i];
+  for (int i = head + 16 * chunks + threadIdx.x; i < n; i += blockDim.x)
+    dst[lead + i] = src[i];
+  return lead;
 }
 
-// ------------------------------------------------------------------ RS
+// The payload octets a burst's table can read: up to its last parity
+// octet where the geometry is a header's (1-9 rows, the last of 1-249
+// data and 0-6 parity octets, doct their sum), else all of them.
+__device__ __forceinline__ int payload_octets(int nb, int ll, int lfv,
+                                              int dl) {
+  const bool header_geometry = nb >= 1 && nb <= kMaxBlocks && ll >= 1 &&
+      ll <= kRsK && lfv >= 0 && lfv <= kRsN - kRsK &&
+      dl == kRsK * (nb - 1) + ll;
+  return header_geometry
+      ? min(dl + (kRsN - kRsK) * (nb - 1) + lfv, kMaxTotalOct)
+      : kMaxTotalOct;
+}
+
+// Octet o of the payload, before the PRBS: descrambled bits
+// kHeaderLen + 8 o + t, t = 0..7 LSB first, from 3 or 4 symbols (bits
+// MSB first).  Bit p0 + t sits at bit 11 - r - t of the 12-bit window.
+__device__ __forceinline__ int pack_octet(const uint8_t* sym, int o) {
+  const int p0 = kHeaderLen + 8 * o;
+  const int s0 = p0 / 3;
+  const int r = p0 - 3 * s0;
+  int w = ((sym[s0] & 7) << 9) | ((sym[s0 + 1] & 7) << 6) |
+          ((sym[s0 + 2] & 7) << 3);
+  if (r == 2) w |= sym[s0 + 3] & 7;
+  return static_cast<int>(__brev(static_cast<unsigned>(w >> (4 - r))) >> 24);
+}
+
 // The exact GF(256) product from the log tables (exp2 spans two periods).
 __device__ __forceinline__ int gmul(int a, int b,
                                     const uint8_t* __restrict__ exp2,
@@ -216,41 +254,20 @@ __device__ __forceinline__ int gmul(int a, int b,
   return (a == 0 || b == 0) ? 0 : exp2[lg[a] + lg[b]];
 }
 
-__global__ void __launch_bounds__(32 * kRsWarps) rs_verify_kernel(
-    const uint8_t* __restrict__ blocks, const int* __restrict__ fec_octets,
-    int N, const int* __restrict__ alpha_to,
-    const int* __restrict__ index_of, uint8_t* __restrict__ out,
-    int* __restrict__ count) {
-  __shared__ uint8_t exp2[2 * kGf];
-  __shared__ uint8_t lg[kGf + 1];
-  for (int i = threadIdx.x; i < 2 * kGf; i += 32 * kRsWarps)
-    exp2[i] = static_cast<uint8_t>(alpha_to[i % kGf]);
-  for (int i = threadIdx.x; i <= kGf; i += 32 * kRsWarps)
-    lg[i] = static_cast<uint8_t>(index_of[i]);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int rowi = blockIdx.x * kRsWarps + (threadIdx.x >> 5);
-  if (rowi >= N) return;                         // a whole warp
-  const uint8_t* in = blocks + static_cast<long long>(rowi) * kRsN;
-  uint8_t* o = out + static_cast<long long>(rowi) * kRsN;
+// RS(255,249) errors-and-erasures decode of one row in shared memory by
+// one warp, fo parity octets present (fo == 0: no FEC).  Returns the
+// count on every lane: 0 for no FEC or a zero syndrome, -1 for a
+// failure (the row unchanged), else the roots found (the row corrected
+// in place).
+__device__ int rs_decode_row(uint8_t* row, int fo,
+                             const uint8_t* __restrict__ exp2,
+                             const uint8_t* __restrict__ lg, int lane) {
+  if (fo == 0) return 0;                         // no parity: skip FEC
   int cw[kPerLane];
 #pragma unroll
   for (int m = 0; m < kPerLane; ++m) {
     const int k = lane + 32 * m;
-    cw[m] = k < kRsN ? in[k] : 0;
-  }
-  const int fo = fec_octets[rowi];
-  auto pass = [&](int cnt) {
-#pragma unroll
-    for (int m = 0; m < kPerLane; ++m) {
-      const int k = lane + 32 * m;
-      if (k < kRsN) o[k] = static_cast<uint8_t>(cw[m]);
-    }
-    if (lane == 0) count[rowi] = cnt;
-  };
-  if (fo == 0) {                                 // no parity: skip FEC
-    pass(0);
-    return;
+    cw[m] = k < kRsN ? row[k] : 0;
   }
 
   // ---- syndromes S_i = sum_k cw[k] alpha^((FCR + i)(NN - 1 - k)) ----
@@ -275,10 +292,7 @@ __global__ void __launch_bounds__(32 * kRsWarps) rs_verify_kernel(
       s[i] ^= __shfl_xor_sync(kFull, s[i], off);
     syn_zero = syn_zero && s[i] == 0;
   }
-  if (syn_zero) {
-    pass(0);
-    return;
-  }
+  if (syn_zero) return 0;
 
   // ---- erasure locator: prod (1 + alpha^(NN-1-pos) x), degree <= 6 --
   const int n_erase = wsub(kRoots, fo);
@@ -384,13 +398,144 @@ __global__ void __launch_bounds__(32 * kRsWarps) rs_verify_kernel(
   const int root_count = __reduce_add_sync(kFull, roots);
   const bool fail = root_count != deg || __any_sync(kFull, den_zero) ||
                     n_erase > kRoots;
-  if (fail) {
-    pass(-1);
+  if (fail) return -1;
+#pragma unroll
+  for (int m = 0; m < kPerLane; ++m) {
+    const int k = lane + 32 * m;
+    if (k < kRsN && mag[m] != 0) row[k] = static_cast<uint8_t>(cw[m] ^ mag[m]);
+  }
+  return root_count;
+}
+
+// One burst's table (and with kDecode its RS decode), a CTA of
+// kPayloadThreads; see L2P above.
+template <bool kDecode>
+__device__ __forceinline__ void payload_body(
+    const uint8_t* __restrict__ symbols, int S,
+    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
+    const int* __restrict__ lf, const int* __restrict__ doct,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
+    int* __restrict__ count, int* __restrict__ fec_row) {
+  __shared__ __align__(16) uint8_t sym_s[kSymStage];
+  __shared__ __align__(16) uint8_t const_s[kConstBytes];
+  __shared__ uint8_t oct_s[kMaxTotalOct];
+  __shared__ uint8_t tab_s[kCells];
+  const int bp = blockIdx.x;
+  const long long src_row = sel != nullptr ? sel[bp] : bp;
+  // the five loads at once; rejected bursts carry geometry 0
+  const bool ok = hdr_ok[src_row] != 0;
+  const int nb_in = num_blocks[src_row];
+  const int ll_in = last_len[src_row];
+  const int lf_in = lf[src_row];
+  const int dl_in = doct[src_row];
+  const int nb = ok ? nb_in : 0;
+  const int ll = ok ? ll_in : 0;
+  const int lfv = ok ? lf_in : 0;
+  const int dl = ok ? dl_in : 0;
+  const int nbm1 = wadd(nb, -1);
+  uint8_t* out = tab + static_cast<long long>(bp) * kCells;
+  const int warp = threadIdx.x >> 5;             // this warp's RS row
+  const int lane = threadIdx.x & 31;
+  const int fo = warp < nbm1 ? kRsN - kRsK : warp == nbm1 ? lfv : 0;
+  if (lane == 0) fec_row[bp * kMaxBlocks + warp] = fo;
+  if (nb <= 0) {                      // no table row: every cell a pad
+    for (int c = threadIdx.x; c < kCells; c += kPayloadThreads) out[c] = 0;
+    if (kDecode && lane == 0) count[bp * kMaxBlocks + warp] = 0;
     return;
   }
-#pragma unroll
-  for (int m = 0; m < kPerLane; ++m) cw[m] ^= mag[m];
-  pass(root_count);
+
+  // ---- stage the symbols and the constant bytes, one wait ----------
+  const int n_oct = payload_octets(nb, ll, lfv, dl);
+  const int lead = stage_row(sym_s, symbols + src_row * S,
+                             (kHeaderLen + 8 * n_oct + 2) / 3);
+  stage_consts(const_s, consts, kConstBytes);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- pack the octets ---------------------------------------------
+  for (int o = threadIdx.x; o < n_oct; o += kPayloadThreads)
+    oct_s[o] = static_cast<uint8_t>(pack_octet(sym_s + lead, o) ^
+                                    const_s[kPrbsOff + o]);
+  __syncthreads();
+
+  // ---- deinterleave ------------------------------------------------
+  // cell (r, c) takes transmission index c (nb - 1) + min(c, ll) + r
+  // (data columns) or doct + cf (nb - 1) + min(cf, lf) + r (parity)
+  for (int cell = threadIdx.x; cell < kCells; cell += kPayloadThreads) {
+    const int r = cell / kRsN;
+    const int c = cell - r * kRsN;
+    const bool is_data = c < kRsK;
+    const int cf = c - kRsK;
+    const int src = is_data
+        ? wadd(wadd(wmul(c, nbm1), min(c, ll)), r)
+        : wadd(wadd(wadd(dl, wmul(cf, nbm1)), min(cf, lfv)), r);
+    const int cpr = is_data ? (r < nbm1 ? kRsK : ll)
+                            : (r < nbm1 ? kRsN - kRsK : lfv);
+    const bool valid = r < nb && (is_data ? c : cf) < cpr;
+    tab_s[cell] = valid ? oct_s[min(max(src, 0), kMaxTotalOct - 1)] : 0;
+  }
+  __syncthreads();
+
+  // ---- decode row `warp` in place -----------------------------------
+  if (kDecode) {
+    const int cnt = rs_decode_row(tab_s + warp * kRsN, fo,
+                                  const_s + kExpOff, const_s + kLogOff,
+                                  lane);
+    if (lane == 0) count[bp * kMaxBlocks + warp] = cnt;
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < kCells; c += kPayloadThreads)
+    out[c] = tab_s[c];
+}
+
+__global__ void __launch_bounds__(kPayloadThreads) l2_payload_kernel(
+    const uint8_t* __restrict__ symbols, int S,
+    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
+    const int* __restrict__ lf, const int* __restrict__ doct,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
+    int* __restrict__ count, int* __restrict__ fec_row) {
+  payload_body<true>(symbols, S, sel, hdr_ok, num_blocks, last_len, lf,
+                     doct, consts, tab, count, fec_row);
+}
+
+__global__ void __launch_bounds__(kPayloadThreads) l2_deinterleave_kernel(
+    const uint8_t* __restrict__ symbols, int S,
+    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
+    const int* __restrict__ lf, const int* __restrict__ doct,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
+    int* __restrict__ fec_row) {
+  payload_body<false>(symbols, S, sel, hdr_ok, num_blocks, last_len, lf,
+                      doct, consts, tab, nullptr, fec_row);
+}
+
+// ------------------------------------------------------------------ RS
+__global__ void __launch_bounds__(32 * kRsWarps) rs_verify_kernel(
+    const uint8_t* __restrict__ blocks, const int* __restrict__ fec_octets,
+    int N, const uint8_t* __restrict__ consts, uint8_t* __restrict__ out,
+    int* __restrict__ count) {
+  __shared__ __align__(16) uint8_t gf_s[kPrbsOff];   // exp, then log
+  __shared__ uint8_t rows_s[kRsWarps][kRsN];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rowi = blockIdx.x * kRsWarps + warp;
+  uint8_t* row = rows_s[warp];
+  stage_consts(gf_s, consts, kPrbsOff);
+  if (rowi < N) {
+    const uint8_t* in = blocks + static_cast<long long>(rowi) * kRsN;
+    for (int k = lane; k < kRsN; k += 32) row[k] = in[k];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (rowi >= N) return;                         // a whole warp
+  const int cnt = rs_decode_row(row, fec_octets[rowi], gf_s + kExpOff,
+                                gf_s + kLogOff, lane);
+  __syncwarp();
+  uint8_t* o = out + static_cast<long long>(rowi) * kRsN;
+  for (int k = lane; k < kRsN; k += 32) o[k] = row[k];
+  if (lane == 0) count[rowi] = cnt;
 }
 
 }  // namespace
@@ -410,26 +555,38 @@ extern "C" int l2_header_launch(const uint8_t* symbols, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int l2_payload_launch(
+    const uint8_t* symbols, int S, const long long* sel, int Bp,
+    const uint8_t* hdr_ok, const int* num_blocks, const int* last_len,
+    const int* lf, const int* doct, const uint8_t* consts, uint8_t* tab,
+    int* count, int* fec_row, void* stream) {
+  if (Bp <= 0) return 0;
+  l2_payload_kernel<<<Bp, kPayloadThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
+      count, fec_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int l2_deinterleave_launch(
     const uint8_t* symbols, int S, const long long* sel, int Bp,
     const uint8_t* hdr_ok, const int* num_blocks, const int* last_len,
-    const int* lf, const int* doct, const uint8_t* prbs, uint8_t* tab,
+    const int* lf, const int* doct, const uint8_t* consts, uint8_t* tab,
     int* fec_row, void* stream) {
   if (Bp <= 0) return 0;
-  l2_deinterleave_kernel<<<Bp, kDeintThreads, 0,
+  l2_deinterleave_kernel<<<Bp, kPayloadThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, prbs, tab,
+      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
       fec_row);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rs_verify_launch(const uint8_t* blocks, const int* fec_octets,
-                                int N, const int* alpha_to,
-                                const int* index_of, uint8_t* out,
+                                int N, const uint8_t* consts, uint8_t* out,
                                 int* count, void* stream) {
   if (N <= 0) return 0;
   rs_verify_kernel<<<(N + kRsWarps - 1) / kRsWarps, 32 * kRsWarps, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      blocks, fec_octets, N, alpha_to, index_of, out, count);
+      blocks, fec_octets, N, consts, out, count);
   return static_cast<int>(cudaGetLastError());
 }

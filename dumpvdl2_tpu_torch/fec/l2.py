@@ -9,9 +9,9 @@ candidate bursts,
     -> deinterleave (gather) -> batched RS(255,249).
 
 The JAX package compiles the chain into one executable; here it is
-three kernels (fec/l2_kernel.py: L2H header and geometry, L2D octet
-packing and deinterleave, RS decode) with the burst compaction between
-the first two and the frame power after the last in plain PyTorch.
+two kernels (fec/l2_kernel.py: L2H header and geometry, L2P octet
+packing, deinterleave and RS decode) with the burst compaction between
+them and the frame power after them in plain PyTorch.
 HDLC unstuffing and CRC stay on the host (burst._result_from_batch).
 Every shape is static; rejected rows decode with fec_octets == 0 (a
 no-op in RS).
@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import RS_N
-from .l2_kernel import MAX_BLOCKS, l2_deinterleave, l2_header, rs_verify
+from .l2_kernel import l2_header, l2_payload
 
 
 def l2_decode_batch(symbols: torch.Tensor, max_symbols: int,
@@ -62,12 +61,9 @@ def l2_decode_batch(symbols: torch.Tensor, max_symbols: int,
         blocks_row = torch.full((B,), -1, dtype=torch.int32, device=dev)
         blocks_row[sel] = torch.arange(rs_burst_cap, dtype=torch.int32,
                                        device=dev)
-    tab, fec_row = l2_deinterleave(symbols, sel, hdr_ok, hdr["num_blocks"],
-                                   hdr["last_len"], lf,
-                                   hdr["datalen_octets"])
-    Bp = tab.shape[0]
-    corr, counts = rs_verify(tab.reshape(Bp * MAX_BLOCKS, RS_N),
-                             fec_row.reshape(Bp * MAX_BLOCKS))
+    blocks, counts, fec_row = l2_payload(symbols, sel, hdr_ok,
+                                         hdr["num_blocks"], hdr["last_len"],
+                                         lf, hdr["datalen_octets"])
     extra = {}
     if blocks_row is not None:
         extra["blocks_row"] = blocks_row
@@ -82,7 +78,5 @@ def l2_decode_batch(symbols: torch.Tensor, max_symbols: int,
             0.0)
     return {
         **extra, **hdr,
-        "blocks": corr.reshape(Bp, MAX_BLOCKS, RS_N),
-        "counts": counts.reshape(Bp, MAX_BLOCKS),
-        "fec_row": fec_row,
+        "blocks": blocks, "counts": counts, "fec_row": fec_row,
     }

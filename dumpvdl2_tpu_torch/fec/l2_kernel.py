@@ -1,30 +1,37 @@
-"""L2 kernels L2H, L2D and RS and their plain twins.
+"""L2 kernels L2H, L2P, L2D and RS and their plain twins.
 
 The JAX package compiles its whole L2 step (``fec/l2_tpu.py``,
 ``fec/rs_tpu.py``) into one XLA executable.  Run eagerly, the same step
 in PyTorch issues ~2 400 small launches a block, most of them the
 Reed-Solomon decoder's 6-step recurrences and bit-serial field
-multiplies.  So the step is three hand-written CUDA kernels
+multiplies.  So the step is two hand-written CUDA kernels
 (``csrc/l2.cu``):
 
 * L2H ``l2_header``: symbols -> bits, PRBS descramble of the 25 header
   bits, the (25,20) header FEC, the bit-reversed transmission length
   and the RS geometry, a thread a burst;
-* L2D ``l2_deinterleave``: octet packing and the deinterleave gather of
-  each (compacted) burst's 9 x 255 RS table straight from its symbols,
-  a thread block a burst, and each row's parity count;
-* RS ``rs_verify``: RS(255,249) errors-and-erasures decode of every
-  table row (the absent parity of a shortened block as erasures), a
-  warp a row.
+* L2P ``l2_payload``: octet packing, the deinterleave of each
+  (compacted) burst's 9 x 255 RS table straight from its symbols, each
+  row's parity count, and the RS(255,249) errors-and-erasures decode of
+  every row (the absent parity of a shortened block as erasures), a
+  thread block a burst and a warp a row, the table in shared memory
+  throughout.
 
-:func:`l2_header`, :func:`l2_deinterleave` and :func:`rs_verify` are
-what ``fec/l2.py`` and ``fec/rs_batch.py`` call.  On a CUDA tensor they
-launch the kernel or raise; on a CPU tensor they run the plain version
-(:func:`l2_header_plain`, :func:`l2_deinterleave_plain`,
+Two more kernels are built on L2P's device functions and keep their
+stages' entry points: L2D ``l2_deinterleave`` (the table and parity
+counts, no decode) and RS ``rs_verify`` (the decode of given rows, a
+warp a row; ``fec/rs_batch.py::rs_verify_batch``).
+
+``fec/l2.py`` calls :func:`l2_header` and :func:`l2_payload`,
+``fec/rs_batch.py`` :func:`rs_verify`; :func:`l2_deinterleave` is
+L2D's.  On a CUDA tensor they launch the kernel or raise; on a CPU
+tensor they run the plain version (:func:`l2_header_plain`,
+:func:`l2_payload_plain`, :func:`l2_deinterleave_plain`,
 :func:`rs_verify_plain`).  Only the CUDA path counts in
 :data:`launches`.  The kernels read their constant tables (the GF(256)
 exp/log tables, the header syndrome table, its weights and parity rows,
-the PRBS) from this package's Python tables, uploaded once a device.
+the PRBS and its octets) from this package's Python tables, uploaded
+once a device.
 """
 from __future__ import annotations
 
@@ -51,12 +58,37 @@ MAX_TOTAL_OCT = MAX_DATA_OCT + (MAX_BLOCKS - 1) * (RS_N - RS_K) + 4  # 2100
 MIN_SYMBOLS = -(-(HEADER_LEN + 8 * MAX_TOTAL_OCT) // 3)  # 5609
 
 # Kernel launches since start (or the last reset by the caller).
-launches = {"l2_header": 0, "l2_deinterleave": 0, "rs_verify": 0}
+launches = {"l2_header": 0, "l2_payload": 0, "l2_deinterleave": 0,
+            "rs_verify": 0}
 
 # L2H's per-burst results, in the kernel's output order: int32, then bool
 HDR_INT = ("syndrome", "synd_weight", "datalen", "datalen_octets",
            "num_blocks", "last_len", "bits_consumed", "lf")
 HDR_BOOL = ("reserved_bad", "too_long", "no_fec", "hdr_ok")
+
+
+# The constant bytes of L2P, L2D and RS (csrc/l2.cu kExpOff, kLogOff,
+# kPrbsOff, kConstBytes): GF(256) exp over two periods, log, and the
+# PRBS packed a payload octet, each padded to 16-byte chunks.
+CONST_LAYOUT = {"exp": 0, "log": 512, "prbs_octets": 768, "bytes": 2880}
+
+
+def prbs_octets() -> np.ndarray:
+    """(MAX_TOTAL_OCT,) uint8: octet o is PRBS bits HEADER_LEN + 8 o + t,
+    t = 0..7, LSB first -- what descrambles payload octet o."""
+    bits = PRBS[HEADER_LEN:HEADER_LEN + 8 * MAX_TOTAL_OCT].reshape(
+        MAX_TOTAL_OCT, 8).astype(np.int64)
+    return (bits << np.arange(8)).sum(axis=1).astype(np.uint8)
+
+
+def const_bytes() -> np.ndarray:
+    """The kernels' constant bytes, laid out as :data:`CONST_LAYOUT`."""
+    out = np.zeros(CONST_LAYOUT["bytes"], np.uint8)
+    out[:2 * 255] = np.tile(ALPHA_TO[:255], 2)
+    out[CONST_LAYOUT["log"]:CONST_LAYOUT["log"] + 256] = INDEX_OF
+    o = CONST_LAYOUT["prbs_octets"]
+    out[o:o + MAX_TOTAL_OCT] = prbs_octets()
+    return out
 
 
 @functools.lru_cache(maxsize=4)
@@ -66,7 +98,7 @@ def _tables(device: torch.device) -> dict[str, torch.Tensor]:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     return {"synd": t(SYNDTABLE), "weight": t(SYND_WEIGHT),
             "h_rows": t(H_ROWS), "prbs": t(PRBS, torch.uint8),
-            "alpha_to": t(ALPHA_TO), "index_of": t(INDEX_OF)}
+            "consts": t(const_bytes(), torch.uint8)}
 
 
 def _i32(x) -> torch.Tensor:
@@ -293,15 +325,12 @@ def l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
     return tab.to(torch.uint8), fec_row
 
 
-def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
-                         doct) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel L2D on the current stream (no fallback).  Arguments
-    and results as :func:`l2_deinterleave_plain`."""
+def _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                      doct) -> int:
+    """Check L2P's and L2D's arguments on the card; returns Bp."""
     dev = symbols.device
-    if dev.type != "cuda":
-        raise ValueError("l2_deinterleave_cuda needs CUDA tensors")
     _check_symbols(symbols)
-    B, S = symbols.shape
+    B = symbols.shape[0]
     _check("hdr_ok", hdr_ok, torch.bool, 1, dev)
     geom = (num_blocks, last_len, lf, doct)
     for name, x in zip(("num_blocks", "last_len", "lf", "doct"), geom):
@@ -310,20 +339,41 @@ def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
         raise ValueError(f"per-burst arrays must have {B} rows")
     if sel is not None:
         _check("sel", sel, torch.int64, 1, dev)
-    Bp = B if sel is None else sel.shape[0]
+    return B if sel is None else sel.shape[0]
+
+
+def _launch_payload(name: str, symbols, sel, hdr_ok, num_blocks, last_len,
+                    lf, doct, outs: tuple[torch.Tensor, ...]) -> None:
+    """Launch ``name`` (L2P or L2D) on the current stream: the burst
+    arguments, the constant bytes, then ``outs``."""
+    fn = _launcher(f"{name}_launch",
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int] + [ctypes.c_void_p] * (7 + len(outs)))
+    Bp = outs[-1].shape[0]
+    with torch.cuda.device(symbols.device):
+        rc = fn(symbols.data_ptr(), symbols.shape[1],
+                None if sel is None else sel.data_ptr(), Bp,
+                hdr_ok.data_ptr(),
+                *(x.data_ptr() for x in (num_blocks, last_len, lf, doct)),
+                _tables(symbols.device)["consts"].data_ptr(),
+                *(x.data_ptr() for x in outs), _stream(symbols))
+    _raise_on(rc, name)
+    launches[name] += 1
+
+
+def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                         doct) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel L2D on the current stream (no fallback).  Arguments
+    and results as :func:`l2_deinterleave_plain`."""
+    dev = symbols.device
+    if dev.type != "cuda":
+        raise ValueError("l2_deinterleave_cuda needs CUDA tensors")
+    Bp = _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                           doct)
     tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
     fec_row = torch.empty((Bp, MAX_BLOCKS), dtype=torch.int32, device=dev)
-    fn = _launcher("l2_deinterleave_launch",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int] + [ctypes.c_void_p] * 9)
-    with torch.cuda.device(dev):
-        rc = fn(symbols.data_ptr(), S,
-                None if sel is None else sel.data_ptr(), Bp,
-                hdr_ok.data_ptr(), *(x.data_ptr() for x in geom),
-                _tables(dev)["prbs"].data_ptr(), tab.data_ptr(),
-                fec_row.data_ptr(), _stream(symbols))
-    _raise_on(rc, "l2_deinterleave")
-    launches["l2_deinterleave"] += 1
+    _launch_payload("l2_deinterleave", symbols, sel, hdr_ok, num_blocks,
+                    last_len, lf, doct, (tab, fec_row))
     return tab, fec_row
 
 
@@ -377,16 +427,15 @@ def rs_verify_cuda(blocks: torch.Tensor, fec_octets: torch.Tensor
         raise ValueError(f"blocks must be (N, {RS_N}) with N fec_octets, "
                          f"got {tuple(blocks.shape)}, "
                          f"{tuple(fec_octets.shape)}")
-    tb = _tables(dev)
     out = torch.empty_like(blocks)
     count = torch.empty(N, dtype=torch.int32, device=dev)
     fn = _launcher("rs_verify_launch",
                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_void_p] * 4)
     with torch.cuda.device(dev):
         rc = fn(blocks.data_ptr(), fec_octets.data_ptr(), N,
-                tb["alpha_to"].data_ptr(), tb["index_of"].data_ptr(),
-                out.data_ptr(), count.data_ptr(), _stream(blocks))
+                _tables(dev)["consts"].data_ptr(), out.data_ptr(),
+                count.data_ptr(), _stream(blocks))
     _raise_on(rc, "rs_verify")
     launches["rs_verify"] += 1
     return out, count
@@ -399,3 +448,48 @@ def rs_verify(blocks: torch.Tensor, fec_octets: torch.Tensor
     if _device_of(blocks) == "cuda":
         return rs_verify_cuda(blocks, fec_octets)
     return rs_verify_plain(blocks, fec_octets)
+
+
+# ------------------------------------------------------------------ L2P
+def l2_payload_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain L2P: :func:`l2_deinterleave_plain`, then
+    :func:`rs_verify_plain` on every row of the tables.  Arguments as
+    :func:`l2_deinterleave_plain`.  Returns ``(corrected (Bp, 9, 255)
+    uint8, counts (Bp, 9) int32, fec_row (Bp, 9) int32)``."""
+    tab, fec_row = l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks,
+                                         last_len, lf, doct)
+    Bp = tab.shape[0]
+    corr, counts = rs_verify_plain(tab.reshape(Bp * MAX_BLOCKS, RS_N),
+                                   fec_row.reshape(Bp * MAX_BLOCKS))
+    return (corr.reshape(Bp, MAX_BLOCKS, RS_N),
+            counts.reshape(Bp, MAX_BLOCKS), fec_row)
+
+
+def l2_payload_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel L2P on the current stream (no fallback).  Arguments
+    and results as :func:`l2_payload_plain`; the counts and parity
+    counts share one allocation."""
+    dev = symbols.device
+    if dev.type != "cuda":
+        raise ValueError("l2_payload_cuda needs CUDA tensors")
+    Bp = _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                           doct)
+    tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
+    counts, fec_row = torch.empty((2, Bp, MAX_BLOCKS), dtype=torch.int32,
+                                  device=dev).unbind()
+    _launch_payload("l2_payload", symbols, sel, hdr_ok, num_blocks,
+                    last_len, lf, doct, (tab, counts, fec_row))
+    return tab, counts, fec_row
+
+
+def l2_payload(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """L2P on the tensors' device: the kernel on CUDA, plain on CPU.
+    Arguments as :func:`l2_payload_plain`."""
+    if _device_of(symbols) == "cuda":
+        return l2_payload_cuda(symbols, sel, hdr_ok, num_blocks, last_len,
+                               lf, doct)
+    return l2_payload_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+                            doct)

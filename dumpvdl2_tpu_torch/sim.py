@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from .constants import (ARITY, BPS, GRAYCODE, HDRFECLEN, HEADER_LEN,
-                        PREAMBLE_PHASE_UNITS, RS_K, RS_N, SPS, TRLEN)
+                        MAX_FRAME_LENGTH, PREAMBLE_PHASE_UNITS, RS_K, RS_N,
+                        SPS, TRLEN)
 from .fec import rs
 from .fec.header import syndrome_of
 from .fec.interleave import _fill_order, burst_geometry, get_fec_octetcount
@@ -215,6 +216,53 @@ def l2_fuzz(n: int, seed: int, max_symbols: int = 5616) -> np.ndarray:
             flips = rng.integers(0, bits.size, int(rng.integers(1, 13)))
             bits[flips] ^= 1
         rows.append(bits_to_symbol_row(bits, max_symbols, rng))
+    return np.stack(rows)
+
+
+# l2_rs_fuzz's last RS rows, in turn: (fewest, most) data octets; the
+# row's parity count follows from them (get_fec_octetcount): 6 for a
+# full block and for 68-248 octets, then 4, 2 and 0
+L2_RS_LAST = ((RS_K, RS_K), (68, RS_K - 1), (31, 67), (3, 30), (1, 2))
+
+
+def l2_rs_fuzz(n: int, seed: int, max_symbols: int = 5616) -> np.ndarray:
+    """Seeded (n, max_symbols) uint8 symbol rows for the L2 decode whose
+    RS rows carry the cases of ``RS_FUZZ_CASES``.  Burst i has 1 to 9 RS
+    blocks of random data, its last row of kind ``L2_RS_LAST[i % 5]``;
+    each row, encoded, takes the symbol errors of a random case with its
+    parity count (correctable, beyond capacity or a zero syndrome for 6
+    parity octets; erasures with errors for 4 and 2; a row without
+    parity passes through) at random transmitted positions, and the
+    table goes out through ``interleave_burst`` behind a valid header.
+    A single block of 1 or 2 octets has no parity: its header is
+    rejected (no_fec)."""
+    rng = np.random.default_rng(seed)
+    cases = np.array(RS_FUZZ_CASES)
+    max_oct = (MAX_FRAME_LENGTH + 7) // 8
+    rows = []
+    for i in range(n):
+        lo, hi = L2_RS_LAST[i % len(L2_RS_LAST)]
+        nb = int(rng.integers(1, (max_oct - lo) // RS_K + 2))
+        last = int(rng.integers(lo, min(hi, max_oct - (nb - 1) * RS_K) + 1))
+        doct = (nb - 1) * RS_K + last
+        datalen = min(8 * doct - int(rng.integers(0, 8)), MAX_FRAME_LENGTH)
+        data = rng.integers(0, 256, (nb, RS_K), dtype=np.uint8)
+        data[-1, last:] = 0
+        tab = rs.encode_batch(data)
+        fec = [RS_N - RS_K] * (nb - 1) + [get_fec_octetcount(last)]
+        tab[-1, RS_K + fec[-1]:] = 0
+        for r in range(nb):
+            kinds = cases[cases[:, 0] == fec[r]]
+            _, e_lo, e_hi = kinds[rng.integers(len(kinds))]
+            cols = np.r_[0:RS_K if r < nb - 1 else last,
+                         RS_K:RS_K + fec[r]]
+            n_err = min(int(rng.integers(e_lo, e_hi + 1)), cols.size)
+            where = rng.choice(cols, size=n_err, replace=False)
+            tab[r, where] ^= rng.integers(1, 256, n_err, dtype=np.uint8)
+        bits = np.concatenate([build_header(datalen),
+                               unpack_lsb(interleave_burst(tab, doct))])
+        rows.append(bits_to_symbol_row(bits ^ PRBS[:bits.size],
+                                       max_symbols, rng))
     return np.stack(rows)
 
 
