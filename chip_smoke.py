@@ -29,23 +29,33 @@ Phases (each must pass; any failure exits non-zero):
    count and the crossing columns equal, the floats within rtol 1e-5,
    atol 1e-7.  Device (profiler) and wrapper-call times, the plain
    versions' times and the bounds;
-4. L2H, L2P, L2D and RS (the L2 kernels, csrc/l2.cu; L2P is the main
-   path's payload stage, L2D and RS the stages' own entry points, built
-   on its device functions) against their plain PyTorch versions on the
-   card, every integer and byte equal: the wideband scene's real L2
-   inputs on the sliced path (l2_sliced, rs_burst_cap) and at EOF
-   (launch_compacted_l2), L2D and RS on L2P's arguments and L2D's
-   tables; 24 000 RS rows of sim.rs_fuzz (0-20 errors, erasures, zero
+4. KC (find_candidates, csrc/candidates.cu), the L2 front, L2H, L2P,
+   L2D and RS (the L2 kernels, csrc/l2.cu; the front and L2P, behind
+   its hdr-ok compaction prologue, are the main path's L2 step, L2H
+   runs on pre-sliced symbols, L2D and RS are the stages' own entry
+   points, built on L2P's device functions) against their plain
+   PyTorch versions on the card, every integer and byte equal (the
+   front's frame_pwr within rtol 1e-6, its > 1.0 decision equal): KC
+   on the wideband scene's real metric planes of a block and of the
+   EOF flush and on adversarial planes at (256, 108 844) with far more
+   leaders than its 64 slots, the front on those slots; the front, L2H
+   on its symbols and L2P (behind its compaction prologue, as the path
+   runs it) on the real L2 inputs of the sliced block and the flush
+   (l2_sliced, the rs cap), L2D on the same rows and RS on L2D's
+   tables; the launches of one sliced L2 step on the block's inputs, by
+   the wrappers' counters and by a trace of that call alone (1 to 4);
+   24 000 RS rows of sim.rs_fuzz (0-20 errors, erasures, zero
    syndromes, fec_octets 0-7 and -1); 384 symbol rows of sim.l2_fuzz
    (bursts of 1-9 RS blocks, damaged bursts, noise) and 256 of
    sim.l2_rs_fuzz (bursts whose RS rows carry the RS fuzz's cases),
-   with and without the compaction; L2P with odd and out-of-range
+   with and without the compaction prologue; L2P with odd and out-of-range
    parity counts (count 6 and -1 through the table); and the vector's
    near-cap burst, which must decode through the kernels;
    l2_decode_batch on the card equal to the CPU's; the card's floor for
    a launch (a one-element fill_); each kernel's device (profiler) and
    wrapper-call times, its plain version's and its bound at the sliced
-   block's and the flush's shapes, L2P beside L2D + RS;
+   block's and the flush's shapes (KC at the block's), L2P beside
+   L2D + RS;
 5. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
@@ -53,18 +63,21 @@ Phases (each must pass; any failure exits non-zero):
 6. wideband main path, device-gated (the default): 256 channels at
    oversample 80 (8.4 Msps), six device-resident blocks of 4 194 240
    samples with 24 bursts on stride-4 channels through feed_planar +
-   finish; all 24 payloads must decode; K1, G1, G2, L2H and L2P must
-   each have launched 7 times on that run (6 blocks + EOF), L2D and RS
-   never, and no plain version of a gate or L2 kernel may have run; the native
+   finish; all 24 payloads must decode; K1, KC, G1, G2, the L2 front
+   and L2P must each have launched 7 times on that run (6 blocks +
+   EOF), L2H, L2D and RS never, no plain version of a gate or L2
+   kernel may have run, and no plain detect or L2-front function
+   (candidates_plain, find_and_slice, slice_windows, demod_window,
+   l2_front_plain, _slot_compaction, compact_rows, the L2H call); the native
    library's unstuffing must have been called on that run and the
    Python spec (_frames_py) never.  Prints the sustained ingest rate,
    the realtime factor, the per-block step breakdown, the finish() time
    and peak device memory;
 7. the host-gated path (device_gate=False) on the same scene: all its
    payloads must decode and its frames equal the gated run's (bytes and
-   freq exact, nf_pwr_dbfs within 1e-4 dB), L2H and L2P must each have
-   launched, L2D and RS never, and no plain version of an L2 kernel
-   run; its realtime
+   freq exact, nf_pwr_dbfs within 1e-4 dB), KC, the front and L2P
+   must each have launched, L2H, L2D and RS never, and no plain version
+   of an L2 kernel or plain detect or L2-front function run; its realtime
    factor and breakdown beside the gated ones;
 8. the CLI on the card: the correctness vector written as an S16_LE file
    and decoded by ``python3 -m dumpvdl2_tpu_torch`` (default platform,
@@ -79,7 +92,9 @@ Phases (each must pass; any failure exits non-zero):
    K' = Tn*K = 128, 256 and 512; for each mesh shape, K1 against its
    plain version on every shard's phase plane of a real block ((256,
    H + Ml + F) at (1, 2), (128, H + Ml + F) at (2, 2); identical
-   detection masks) and G1 on that block's real merged (C, Tn*K) grid,
+   detection masks), KC on every shard's metric planes with its
+   detection window (detect_lo, detect_hi) and G1 on that block's real
+   merged (C, Tn*K) grid,
    and L2H, L2P, L2D and RS on the mesh's real L2 inputs (launch_compacted_l2
    over every shard's slots, a block and at EOF); then the mesh path
    (MeshPipeline,
@@ -87,9 +102,9 @@ Phases (each must pass; any failure exits non-zero):
    (2, 2), the shards on distinct GPUs where there are enough, else on
    cuda:0 repeated: 24/24 payloads, the
    frames equal to the single-device gated run's (bytes, freq and idx
-   exact, nf_pwr_dbfs within 1e-4 dB); K1 launched once per shard a
-   block plus once at EOF, G1, G2, L2H and L2P once a block plus once
-   at EOF, L2D and RS never, no plain version run.  Realtime factor, peak memory, the blocks re-read
+   exact, nf_pwr_dbfs within 1e-4 dB); K1 and KC launched once per
+   shard a block plus once at EOF, G1, G2, L2H and L2P once a block
+   plus once at EOF, the front, L2D and RS never, no plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
 11. the multi-process path (parallel/multihost.py): ``init_distributed()``
    is a no-op without WORLD_SIZE; two ranks of
@@ -106,8 +121,11 @@ Phases (each must pass; any failure exits non-zero):
    the gated single-device block staged three times (dispatch, device,
    fetch with its bytes, host) and traced once (device busy and idle
    share, kernel launches, top ops, idle gaps), its frames equal to
-   feed_planar's; a steady feed_planar block traced as it runs; the
-   mesh (1, 2) block's per-step split and trace;
+   feed_planar's; a staged block whose steps synchronize, traced for
+   each step's kernel launches (split by the kernels' midpoints, so
+   printed only; phase 4 counts the L2 step's exactly); a steady
+   feed_planar block traced as it runs; the mesh (1, 2) block's
+   per-step split and trace;
 13. the host library (dumpvdl2_tpu_torch/native): on every burst
    stream the gated wideband run unstuffs, and on 2 000 seeded fuzz
    streams, the C unstuffing and FCS equal the Python spec's exactly
@@ -204,16 +222,39 @@ L2H_OPS_PER_BURST = 60
 L2D_OPS_PER_OCTET = 16
 L2D_OPS_PER_CELL = 6
 RS_OPS_PER_TERM = 2
-# The L2 kernels of the main path (the names fec/l2.py imports), and
-# those built on L2P's device functions for the stages' own entry points,
-# which must not launch there.
-L2_KERNELS = ("l2_header", "l2_payload")
+# KC's least instructions per sample of the err plane: the two compares
+# of a crossing, the two of the detection window, the bit's shift and
+# merge into its word.  The L2 front's per symbol: the two differences,
+# the two wraps (compare and select each), the division, the rounding,
+# the modulo, the Gray lookup and the store; per summed power term an
+# add.  Both move more bytes than they issue instructions.
+KC_OPS_PER_SAMPLE = 6
+FRONT_OPS_PER_SYMBOL = 10
+# The L2 kernels of the single-device main path: the front and L2P
+# (behind its compaction prologue); L2H on pre-sliced symbols runs on
+# the mesh and in l2_decode_batch; those built on L2P's device functions
+# for the stages' own entry points must not launch on either.
+L2_KERNELS = ("l2_front", "l2_payload")
+L2_MESH_KERNELS = ("l2_header", "l2_payload")
 L2_STANDALONE = ("l2_deinterleave", "rs_verify")
+# The calls capture_l2_inputs records: core/pipeline.py's front and
+# fec/l2.py's kernel calls.
+L2_CALLS = {"pipeline": ("l2_front",),
+            "l2_step": ("l2_header", "l2_payload", "l2_payload_capped")}
 # The L2 kernels' plain versions and their stages: none may run on the
 # card's main path.
 L2_PLAIN = ("l2_header_plain", "l2_payload_plain", "l2_deinterleave_plain",
             "rs_verify_plain",
             "rs_decode_batch", "_clear_bits")
+# The plain detect and L2-front functions: none may run on the card's
+# single-device main path (the mesh still slices its candidates with
+# find_and_slice and compacts them with _slot_compaction, compact_rows).
+FRONT_PLAIN = {"candidates_kernel": ("candidates_plain",),
+               "demod": ("find_and_slice", "slice_windows", "demod_window"),
+               "pipeline": ("find_and_slice", "l2_front_plain",
+                            "_slot_compaction"),
+               "l2_kernel": ("compact_rows", "l2_payload_capped_plain"),
+               "l2_step": ("l2_header",)}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -758,11 +799,16 @@ def rs_bound(fec: torch.Tensor, count: torch.Tensor, sms: int,
 
 def l2p_bound(args: tuple, fec_row: torch.Tensor, count: torch.Tensor,
               sms: int, clock_hz: float) -> dict:
-    """Least time for L2P on these inputs: L2D's bytes (its inputs, the
-    table and parity counts written once) and the RS counts written
-    once; L2D's operations and RS's on the table's rows (``fec_row`` and
-    ``count`` L2P's results)."""
-    nbytes, ops = l2d_work(args)
+    """Least time for L2P on these inputs (payload_args' form): L2D's
+    bytes on the same rows (its inputs, the table and parity counts
+    written once) and the RS counts written once; behind the compaction
+    prologue no row index, but hdr_ok read and blocks_row written for
+    every burst.  L2D's operations and RS's on the table's rows
+    (``fec_row`` and ``count`` L2P's results)."""
+    nbytes, ops = l2d_work(l2d_args(args))
+    sym, cap = args[:2]
+    if cap is not None:
+        nbytes += (1 + 4) * sym.shape[0] - (8 + 1) * cap
     return _bound(nbytes + 4 * count.numel(),
                   ops + rs_ops(fec_row.reshape(-1), count.reshape(-1)),
                   sms, clock_hz)
@@ -821,14 +867,39 @@ def compare_rs(blocks: torch.Tensor, fec: torch.Tensor, label: str
             "by_count": {int(v): int(c) for v, c in zip(vals, n)}}
 
 
-def compare_l2p(args: tuple, label: str) -> dict:
-    """L2P against its plain version: corrected table, counts and parity
-    counts equal, dtypes too.  Returns the rows with parity by count."""
+def l2p_calls(args: tuple) -> tuple:
+    """L2P's kernel and plain calls on ``args`` (symbols, cap, hdr_ok,
+    num_blocks, last_len, lf, doct): every burst with cap None, else
+    behind the hdr-ok compaction prologue (l2_payload_capped)."""
     _, l2_kernel = l2_modules()
-    k = l2_kernel.l2_payload_cuda(*args)
-    p = l2_kernel.l2_payload_plain(*args)
+    sym, cap, *geom = args
+    if cap is None:
+        return (lambda: l2_kernel.l2_payload_cuda(sym, *geom),
+                lambda: l2_kernel.l2_payload_plain(sym, *geom))
+    return (lambda: l2_kernel.l2_payload_capped_cuda(*args),
+            lambda: l2_kernel.l2_payload_capped_plain(*args))
+
+
+def l2d_args(args: tuple) -> tuple:
+    """L2D's arguments for the rows L2P decodes on ``args``: its row
+    index is the stable hdr-ok order's first ``cap`` rows (None for
+    every burst)."""
+    _, l2_kernel = l2_modules()
+    sym, cap, hdr_ok, *geom = args
+    sel = None if cap is None else l2_kernel.compact_rows(hdr_ok, cap)[0]
+    return (sym, sel, hdr_ok, *geom)
+
+
+def compare_l2p(args: tuple, label: str) -> dict:
+    """L2P against its plain version on ``args`` (l2p_calls): corrected
+    table, counts, parity counts and (behind the compaction) blocks_row
+    equal, dtypes too.  Returns the rows with parity by count."""
+    kernel, plain = l2p_calls(args)
+    k = kernel()
+    p = plain()
     torch.cuda.synchronize()
-    for name, a, b in zip(("table", "counts", "fec_row"), k, p):
+    for name, a, b in zip(("table", "counts", "fec_row", "blocks_row"),
+                          k, p):
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             bad = (a != b).reshape(a.shape[0], -1).any(dim=1) \
                 if a.shape == b.shape else None
@@ -836,31 +907,38 @@ def compare_l2p(args: tuple, label: str) -> dict:
                 f"L2P differs from its plain version on {label}: {name} "
                 f"({'shape' if bad is None else int(bad.sum().item())} "
                 f"bursts)")
-    _, counts, fec_row = p
+    counts, fec_row = p[1], p[2]
     vals, n = torch.unique(counts[fec_row != 0], return_counts=True)
-    return {"rows": counts.shape[0],
+    return {"rows": counts.shape[0], "bursts": int(args[0].shape[0]),
+            "overflow": int((p[3] < 0).sum().item()) if len(p) > 3 else 0,
             "rs_rows": int((fec_row != 0).sum().item()),
             "by_count": {int(v): int(c) for v, c in zip(vals, n)}}
 
 
 def capture_l2_inputs(scene, mesh_shape=None) -> dict:
-    """The arguments L2H and L2P get on the gated wideband path, keyed
-    (stage, kernel): stage "block" the second block's (the sliced path,
-    l2_sliced with rs_burst_cap), "eof" the flush's (finish(),
-    launch_compacted_l2, uncapped).  With ``mesh_shape`` the mesh's
-    (launch_compacted_l2 over every shard's slots)."""
+    """The arguments KC and fec/l2.py's kernel calls get on the gated
+    wideband path, keyed (stage, name): stage "block" the second
+    block's (the sliced path: the front, L2P behind its compaction),
+    "eof" the flush's (finish(): the same calls on the halo).  With
+    ``mesh_shape`` the mesh's (KC on the last shard, L2H and L2P of
+    launch_compacted_l2 over every shard's slots)."""
     from dumpvdl2_tpu_torch.core.mesh_pipeline import MeshPipeline
+    from dumpvdl2_tpu_torch.core import pipeline
     l2_step, _ = l2_modules()
+    kc, _ = front_modules()
+    mods = {"pipeline": pipeline, "l2_step": l2_step}
     freqs, fs, os_, sig, _, _ = scene
     got: dict = {}
     stage = ["block"]
-    orig = {n: getattr(l2_step, n) for n in L2_KERNELS}
+    orig = {(m, n): getattr(mods[m], n)
+            for m, names in L2_CALLS.items() for n in names}
+    orig_kc = kc.candidates_cuda
 
-    def spy(n):
-        def fn(*a):
+    def spy(n, fn):
+        def call(*a):
             got[(stage[0], n)] = a
-            return orig[n](*a)
-        return fn
+            return fn(*a)
+        return call
 
     if mesh_shape is None:
         pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
@@ -869,54 +947,327 @@ def capture_l2_inputs(scene, mesh_shape=None) -> dict:
                             mesh_shape=mesh_shape,
                             devices=mesh_devices(mesh_shape))
     try:
-        for n in L2_KERNELS:
-            setattr(l2_step, n, spy(n))
+        for (m, n), fn in orig.items():
+            setattr(mods[m], n, spy(n, fn))
+        kc.candidates_cuda = spy("find_candidates", orig_kc)
         for b in range(2):
             pipe.feed_planar(sig[:, b * WIDEBAND_BLOCK:
                                  (b + 1) * WIDEBAND_BLOCK])
         stage[0] = "eof"
         pipe.finish()
     finally:
-        for n, fn in orig.items():
-            setattr(l2_step, n, fn)
+        for (m, n), fn in orig.items():
+            setattr(mods[m], n, fn)
+        kc.candidates_cuda = orig_kc
     torch.cuda.synchronize()
     return got
 
 
-def rs_rows_of(p_args: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-    """RS's rows and parity counts for L2P's arguments: L2D's tables."""
+def payload_args(got: dict, stage: str) -> tuple:
+    """L2P's arguments at ``stage`` in l2p_calls' form: as captured
+    behind the compaction prologue, or with cap None for every
+    burst."""
+    if (stage, "l2_payload_capped") in got:
+        return got[(stage, "l2_payload_capped")]
+    sym, *geom = got[(stage, "l2_payload")]
+    return (sym, None, *geom)
+
+
+def rs_rows_of(d_args: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """RS's rows and parity counts for L2D's arguments: L2D's tables."""
     _, l2_kernel = l2_modules()
-    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*p_args)
+    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*d_args)
     return tab.reshape(-1, 255), fec_row.reshape(-1)
 
 
+def front_modules():
+    """dsp/candidates_kernel.py and fec/l2_kernel.py of the checkout
+    under test (KC and the L2 front)."""
+    from dumpvdl2_tpu_torch.dsp import candidates_kernel
+    from dumpvdl2_tpu_torch.fec import l2_kernel
+    return candidates_kernel, l2_kernel
+
+
+def compare_kc(args: tuple, label: str) -> dict:
+    """KC against its plain version on ``args`` (err, freq, threshold,
+    K, S, detect_lo, detect_hi): every field equal, dtypes too (the
+    floats are gathers or the plain version's arithmetic in its
+    order)."""
+    kc, _ = front_modules()
+    k = kc.candidates_cuda(*args)
+    p = kc.candidates_plain(*args)
+    torch.cuda.synchronize()
+    for name in p._fields:
+        a, b = getattr(k, name), getattr(p, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(dim=1) \
+                if a.shape == b.shape else None
+            raise AssertionError(
+                f"KC differs from its plain version on {label}: {name} "
+                f"({'shape' if bad is None else int(bad.sum().item())} "
+                f"rows)")
+    return {"shape": list(args[0].shape), "K": args[3],
+            "leaders": int(p.count.sum().item()),
+            "max_count": int(p.count.max().item()) if p.count.numel()
+            else 0, "slots": int((p.det_idx >= 0).sum().item())}
+
+
+def compare_front(args: tuple, label: str) -> dict:
+    """The L2 front against its plain version on ``args`` (phases, pwr,
+    count, sync_idx, dphi, K, S): take, inv, the symbols and every
+    header field equal, frame_pwr within rtol 1e-6, and its one decision
+    (frame_pwr > 1.0, the loud-message counter) equal."""
+    from dumpvdl2_tpu_torch.core import pipeline
+    _, l2_kernel = front_modules()
+    k = l2_kernel.l2_front_cuda(*args)
+    p = pipeline.l2_front_plain(*args)
+    torch.cuda.synchronize()
+    if set(k) != set(p) or (k["inv"] is None) != (p["inv"] is None):
+        raise AssertionError(f"L2 front's results differ in kind on {label}")
+    for key, want in p.items():
+        if key == "frame_pwr" or want is None:
+            continue
+        got = k[key]
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or not torch.equal(got, want):
+            raise AssertionError(f"L2 front differs from its plain version "
+                                 f"on {label}: {key}")
+    fk, fp = k["frame_pwr"], p["frame_pwr"]
+    rel = ((fk - fp).abs() / fp.abs().clamp_min(1e-30)).max().item() \
+        if fp.numel() else 0.0
+    if not rel <= 1e-6 or not torch.equal(fk == 0, fp == 0):
+        raise AssertionError(f"L2 front's frame_pwr differs on {label}: "
+                             f"relative {rel:.3e} (> 1e-6)")
+    loud = int(((fk > 1.0) != (fp > 1.0)).sum().item())
+    if loud:
+        raise AssertionError(f"L2 front's frame_pwr > 1.0 differs from the "
+                             f"plain version's on {loud} rows of {label}")
+    return {"rows": int(p["take"].shape[0]),
+            "hdr_ok": int(p["hdr_ok"].sum().item()),
+            "compacted": p["inv"] is not None,
+            "frame_pwr_max_rel_err": rel,
+            "frame_pwr_max_abs_err": (fk - fp).abs().max().item()
+            if fp.numel() else 0.0}
+
+
+def kc_bound(args: tuple, sms: int, clock_hz: float) -> dict:
+    """Least time for KC on these inputs: the err plane read once, the
+    four gathers of each valid slot (y1, y2, y3, dphi) and the column-0
+    reads of each row with an empty slot, the results written once;
+    KC_OPS_PER_SAMPLE a sample of the plane."""
+    kc, _ = front_modules()
+    err, _freq, _thr, K, *_ = args
+    C, M = err.shape
+    d = kc.candidates_cuda(*args)
+    valid = int((d.det_idx >= 0).sum().item())
+    empty_rows = int((d.count < K).sum().item())
+    nbytes = 4 * C * M + 16 * valid + 8 * empty_rows + 4 * C + 20 * C * K
+    return _bound(nbytes, KC_OPS_PER_SAMPLE * C * M, sms, clock_hz)
+
+
+def l2_front_bound(args: tuple, sms: int, clock_hz: float) -> dict:
+    """Least time for the L2 front on these inputs: the distinct phase
+    samples its rows' windows read (below M) and the distinct power
+    samples of the accepted rows' frame power, the count and each row's
+    slot (sync point and frequency) read once; the symbols, the header
+    fields, the frame power, take and inv written once.  Operations:
+    FRONT_OPS_PER_SYMBOL a symbol, L2H's a header, an add a power
+    term."""
+    _, l2_kernel = front_modules()
+    phases, _pwr, count, sync_idx, _dphi, K, S = args
+    C, M = phases.shape
+    f = l2_kernel.l2_front_cuda(*args)
+    take = f["take"]
+    cap = take.shape[0]
+    dev = phases.device
+    row_c = torch.div(take, K, rounding_mode="floor")
+    start = sync_idx.reshape(-1)[take].to(torch.int64).clamp(0, M)
+    idx = start[:, None] + SPS * torch.arange(S + 1, device=dev)
+    flat = row_c[:, None] * M + idx
+    n_ph = torch.unique(flat[idx < M]).numel()
+    total = torch.clamp(-torch.div(-f["bits_consumed"], 3,
+                                   rounding_mode="floor"), min=1)
+    s_idx = torch.arange(1, S + 1, device=dev)
+    use = f["hdr_ok"][:, None] & (s_idx[None, :] <= total[:, None]) \
+        & (idx[:, 1:] < M)
+    n_terms = int(use.sum().item())
+    n_pw = torch.unique(flat[:, 1:][use]).numel()
+    nbytes = 4 * (n_ph + n_pw) + 4 * C + 8 * cap + cap * S \
+        + cap * (4 * len(l2_kernel.HDR_INT) + len(l2_kernel.HDR_BOOL) + 4) \
+        + 8 * cap + (4 * C * K if f["inv"] is not None else 0)
+    ops = FRONT_OPS_PER_SYMBOL * cap * S + L2H_OPS_PER_BURST * cap + n_terms
+    return _bound(nbytes, ops, sms, clock_hz)
+
+
+def adversarial_metric(C: int, M: int, seed: int) -> tuple:
+    """A K1-like (err, freq) pair with far more leaders than slots:
+    err above the threshold but for dips below it at 3 % of the
+    samples (+inf for the first LOOKBACK samples), freq normal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err = torch.rand((C, M), generator=gen, device="cuda") * 4.5 + 4.5
+    dips = torch.rand((C, M), generator=gen, device="cuda") < 0.03
+    err = torch.where(dips, torch.rand((C, M), generator=gen,
+                                       device="cuda") * SYNC_THRESHOLD, err)
+    err[:, :sync_kernel.LOOKBACK] = float("inf")
+    freq = torch.randn((C, M), generator=gen, device="cuda") * 0.05
+    freq[:, :sync_kernel.LOOKBACK] = 0.0
+    return err.contiguous(), freq.contiguous()
+
+
+def log_time(name: str, label: str, t: dict, floor_ms: float) -> None:
+    log(f"{name} at {label} {tuple(t['shape'])}: kernel {t['ms']:.4f} ms "
+        f"({t['ms_from']}), a wrapper call {t['call_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}; bytes {t['bytes_ms']:.6f}, issue "
+        f"{t['ops_ms']:.6f}), launch floor {floor_ms:.4f} ms; "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+
+
+def time_kc(args: tuple, sms: int, clock: float) -> dict:
+    """KC's device and wrapper-call times, its plain version's and its
+    bound on ``args``."""
+    kc, _ = front_modules()
+    return {**time_gate(lambda: kc.candidates_cuda(*args),
+                        lambda: kc.candidates_plain(*args),
+                        "candidates_kernel"),
+            **kc_bound(args, sms, clock), "shape": list(args[0].shape)}
+
+
+def time_front(args: tuple, sms: int, clock: float) -> dict:
+    """The L2 front's device and wrapper-call times, its plain
+    version's and its bound on ``args``."""
+    from dumpvdl2_tpu_torch.core import pipeline
+    _, l2_kernel = front_modules()
+    return {**time_gate(lambda: l2_kernel.l2_front_cuda(*args),
+                        lambda: pipeline.l2_front_plain(*args),
+                        "l2_front_kernel"),
+            **l2_front_bound(args, sms, clock),
+            "shape": [l2_kernel.slot_cap(args[2].shape[0], args[5]),
+                      args[6]]}
+
+
+def check_kc_front(got: dict, sms: int, clock: float,
+                   floor_ms: float) -> dict:
+    """KC against its plain version on the wideband block's and the
+    flush's captured metric planes and on adversarial planes with far
+    more leaders than slots, the front on the adversarial slots; KC's
+    times and bounds on each, the front's on the adversarial slots.
+    (The front on the captured block and flush is held in
+    check_l2_captured and timed in time_l2.)"""
+    kc, _ = front_modules()
+    res = {"times": {}}
+    for stage in ("block", "eof"):
+        args = got[(stage, "find_candidates")]
+        res[stage] = r = compare_kc(args, f"wideband {stage}")
+        log(f"KC wideband {stage} {tuple(r['shape'])}, K {r['K']}: "
+            f"{r['leaders']} leaders (at most {r['max_count']} a row), "
+            f"{r['slots']} slots filled: equal to its plain version")
+        res["times"][stage] = time_kc(args, sms, clock)
+        log_time("find_candidates (KC)", stage, res["times"][stage],
+                 floor_ms)
+    C, M = 256, 108844
+    err, freq = adversarial_metric(C, M, seed=31)
+    adv = (err, freq, SYNC_THRESHOLD, 64, 5616, 0, None)
+    r = compare_kc(adv, "adversarial")
+    if r["max_count"] <= 4 * 64:
+        raise AssertionError(f"the adversarial planes reached only "
+                             f"{r['max_count']} leaders a row")
+    res["adversarial"] = r
+    d = kc.candidates_cuda(*adv)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    pwr = torch.rand((C, M), generator=gen, device="cuda") * 2.0
+    f_args = (random_phases(C, M, 32), pwr, d.count, d.sync_idx, d.dphi,
+              64, 5616)
+    f = compare_front(f_args, "adversarial slots")
+    res["front_adversarial"] = f
+    log(f"KC adversarial {(C, M)}: {r['leaders']} leaders (up to "
+        f"{r['max_count']} a row, K = 64): equal to its plain version; "
+        f"the front on its slots ({f['rows']} rows, {f['hdr_ok']} headers "
+        f"accepted on random phases) equal, frame_pwr within "
+        f"{f['frame_pwr_max_rel_err']:.2e} relative")
+    res["times"]["adversarial"] = time_kc(adv, sms, clock)
+    log_time("find_candidates (KC)", "adversarial",
+             res["times"]["adversarial"], floor_ms)
+    res["front_times"] = {"adversarial": time_front(f_args, sms, clock)}
+    log_time("l2_front", "adversarial slots",
+             res["front_times"]["adversarial"], floor_ms)
+    return res
+
+
 def check_payload(p_args: tuple, label: str) -> dict:
-    """L2P, L2D and RS (on L2D's tables) against their plain versions."""
+    """L2P (l2p_calls' form), L2D on the same rows and RS on L2D's
+    tables against their plain versions."""
     p = compare_l2p(p_args, label)
-    d = compare_l2d(p_args, label)
-    blocks, fec = rs_rows_of(p_args)
+    d_args = l2d_args(p_args)
+    d = compare_l2d(d_args, label)
+    blocks, fec = rs_rows_of(d_args)
     r = compare_rs(blocks, fec, label)
     return {"l2p": p, "l2d": d, "rs": r, "rs_rows": list(blocks.shape)}
 
 
 def check_l2_captured(got: dict, label: str) -> dict:
-    """L2H, L2P, L2D and RS against their plain versions on captured
-    real inputs, at each stage's shapes; L2D and RS take L2P's
-    arguments and L2D's tables."""
+    """The L2 kernels against their plain versions on captured real
+    inputs, at each stage's shapes: the front (where the path runs it),
+    L2H on the stage's symbols, L2P (with its compaction prologue where
+    the path runs it), and L2D and RS on L2P's arguments and L2D's
+    tables."""
     res = {}
     for stage in ("block", "eof"):
-        (sym,) = got[(stage, "l2_header")]
+        p_args = payload_args(got, stage)
+        sym = p_args[0]
+        front = compare_front(got[(stage, "l2_front")], f"{label} {stage}") \
+            if (stage, "l2_front") in got else None
         h = compare_l2h(sym, f"{label} {stage}")
-        c = check_payload(got[(stage, "l2_payload")], f"{label} {stage}")
-        res[stage] = {"l2h": h, **c, "symbols": list(sym.shape),
+        c = check_payload(p_args, f"{label} {stage}")
+        res[stage] = {"front": front, "l2h": h, **c,
+                      "symbols": list(sym.shape),
                       "table_rows": c["l2p"]["rows"]}
-        log(f"L2 {label} {stage}: L2H on {tuple(sym.shape)} symbols "
-            f"({h['hdr_ok']} headers accepted), L2P on "
-            f"{c['l2p']['rows']} bursts ({c['l2p']['rs_rows']} RS rows "
-            f"with parity, by count {c['l2p']['by_count']}), L2D on the "
-            f"same and RS on its {tuple(c['rs_rows'])} rows: all equal "
-            f"to their plain versions")
+        log(f"L2 {label} {stage}: "
+            + (f"front on {front['rows']} rows ({front['hdr_ok']} headers "
+               f"accepted, frame_pwr within "
+               f"{front['frame_pwr_max_rel_err']:.2e} relative), "
+               if front else "")
+            + f"L2H on {tuple(sym.shape)} symbols ({h['hdr_ok']} headers "
+            f"accepted), L2P on {c['l2p']['rows']} bursts "
+            + (f"(its prologue compacting {c['l2p']['bursts']} rows, "
+               f"{c['l2p']['overflow']} over) " if p_args[1] is not None
+               else "")
+            + f"({c['l2p']['rs_rows']} RS rows with parity, by count "
+            f"{c['l2p']['by_count']}), L2D on the same and RS on its "
+            f"{tuple(c['rs_rows'])} rows: all equal to their plain "
+            f"versions")
     return res
+
+
+def l2_step_launches(got: dict) -> dict:
+    """The launches of one sliced L2 step (core/pipeline.l2_sliced) on
+    the wideband block's captured front inputs: the L2 wrappers'
+    counters around the call, and the device kernels a torch.profiler
+    trace of that call alone records (the card idle before and after).
+    Both must be 1 to 4 (the trace's where it records any)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dumpvdl2_tpu_torch.core import pipeline
+    _, l2_kernel = l2_modules()
+    args = got[("block", "l2_front")]
+    pipeline.l2_sliced(*args)
+    torch.cuda.synchronize()
+    before = dict(l2_kernel.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipeline.l2_sliced(*args)
+        torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in l2_kernel.launches.items()
+               if v != before[k]}
+    traced = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    n = sum(counted.values())
+    if not 0 < n <= 4 or len(traced) > 4:
+        raise AssertionError(f"the sliced L2 step launched {counted} by the "
+                             f"wrappers' counters and {traced} by the "
+                             f"trace, expected 1 to 4")
+    return {"counted": counted, "launches": n,
+            "traced": traced if traced else None}
 
 
 def launch_floor() -> dict:
@@ -933,26 +1284,27 @@ def launch_floor() -> dict:
 
 def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
     """Device (profiler) and wrapper-call times, plain times and bounds
-    of L2P, L2D and RS (and L2H at the sliced block) on the captured
+    of L2P (as the path runs it, behind its compaction prologue where it
+    does), L2D on the same rows and RS on L2D's tables (and the front
+    where the path runs it, L2H at the sliced block) on the captured
     inputs of ``stage``."""
     _, l2_kernel = l2_modules()
-    (sym,) = got[(stage, "l2_header")]
-    p_args = got[(stage, "l2_payload")]
-    blocks, fec = rs_rows_of(p_args)
-    _, count, fec_row = l2_kernel.l2_payload_cuda(*p_args)
+    p_args = payload_args(got, stage)
+    d_args = l2d_args(p_args)
+    sym = p_args[0]
+    blocks, fec = rs_rows_of(d_args)
+    kernel, plain = l2p_calls(p_args)
+    _, count, fec_row, *_ = kernel()
     Bp = fec_row.shape[0]
     times = {
-        "l2_payload": {**time_gate(
-            lambda: l2_kernel.l2_payload_cuda(*p_args),
-            lambda: l2_kernel.l2_payload_plain(*p_args),
-            "l2_payload_kernel"),
-            **l2p_bound(p_args, fec_row, count, sms, clock),
-            "shape": [Bp, 9, 255],
-            "rows_with_parity": int((fec_row != 0).sum().item())},
+        "l2_payload": {**time_gate(kernel, plain, "l2_payload_kernel"),
+                       **l2p_bound(p_args, fec_row, count, sms, clock),
+                       "shape": [Bp, 9, 255],
+                       "rows_with_parity": int((fec_row != 0).sum().item())},
         "l2_deinterleave": {**time_gate(
-            lambda: l2_kernel.l2_deinterleave_cuda(*p_args),
-            lambda: l2_kernel.l2_deinterleave_plain(*p_args),
-            "l2_deinterleave_kernel"), **l2d_bound(p_args, sms, clock),
+            lambda: l2_kernel.l2_deinterleave_cuda(*d_args),
+            lambda: l2_kernel.l2_deinterleave_plain(*d_args),
+            "l2_deinterleave_kernel"), **l2d_bound(d_args, sms, clock),
             "shape": [Bp, 9, 255]},
         "rs_verify": {**time_gate(
             lambda: l2_kernel.rs_verify_cuda(blocks, fec),
@@ -961,6 +1313,8 @@ def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
             **rs_bound(fec, count.reshape(-1), sms, clock),
             "shape": list(blocks.shape),
             "rows_with_parity": int((fec != 0).sum().item())}}
+    if (stage, "l2_front") in got:
+        times["l2_front"] = time_front(got[(stage, "l2_front")], sms, clock)
     if stage == "block":
         times["l2_header"] = {**time_gate(
             lambda: l2_kernel.l2_header_cuda(sym),
@@ -971,8 +1325,10 @@ def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
 
 
 def check_l2(scene) -> dict:
-    """L2H, L2P, L2D and RS against their plain versions on the card:
-    the wideband scene's real L2 inputs (sliced and EOF), a fuzz of RS
+    """KC, the L2 front, L2H, L2P, L2D and RS against their plain
+    versions on the card: the wideband scene's real detection and L2
+    inputs (sliced block and EOF), KC and the front on adversarial
+    planes with far more leaders than slots, a fuzz of RS
     rows over every case of rs_verify, symbol rows of synthesized bursts
     and noise (sim.l2_fuzz) and of bursts whose rows carry the RS cases
     (sim.l2_rs_fuzz), both with the sliced path's compaction, odd parity
@@ -982,6 +1338,12 @@ def check_l2(scene) -> dict:
     l2_step, l2_kernel = l2_modules()
     got = capture_l2_inputs(scene)
     res = {"real": check_l2_captured(got, "wideband")}
+    res["l2_step"] = step = l2_step_launches(got)
+    log(f"the sliced L2 step on the block's inputs: {step['launches']} "
+        f"launches by the wrappers' counters {step['counted']}; the "
+        f"trace of the call alone: "
+        + (f"{len(step['traced'])} kernels {step['traced']}"
+           if step["traced"] else "no device records"))
 
     rows, fec = sim.rs_fuzz(24000, seed=21)
     fuzz = compare_rs(torch.as_tensor(rows, device="cuda"),
@@ -997,13 +1359,11 @@ def check_l2(scene) -> dict:
         compare_l2h(sym, name)
         hdr = l2_kernel.l2_header_plain(sym)
         for cap in (None, 96):
-            sel = None if cap is None else torch.argsort(
-                (~hdr["hdr_ok"]).to(torch.int32), stable=True)[:cap]
-            p_args = (sym, sel, hdr["hdr_ok"], hdr["num_blocks"],
+            p_args = (sym, cap, hdr["hdr_ok"], hdr["num_blocks"],
                       hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
-            c = check_payload(p_args, f"{name}, {cap} rows selected")
-            log(f"{name} ({tuple(sym.shape)} symbols, {cap} rows "
-                f"selected): L2H, L2P, L2D and RS equal to their plain "
+            c = check_payload(p_args, f"{name}, cap {cap}")
+            log(f"{name} ({tuple(sym.shape)} symbols, cap {cap}): "
+                f"L2H, L2P, L2D and RS equal to their plain "
                 f"versions; RS rows with parity by count "
                 f"{c['l2p']['by_count']}")
             out = l2_step.l2_decode_batch(sym, sym.shape[1],
@@ -1061,16 +1421,11 @@ def check_l2(scene) -> dict:
     log(f"launch floor (a one-element fill_): {floor['ms']:.4f} ms "
         f"({floor['ms_from']}), a call {floor['call_ms']:.4f} ms")
     res["launch_floor"] = floor
+    res["kc"] = check_kc_front(got, sms, clock, floor["ms"])
     for stage in ("block", "eof"):
         times = time_l2(got, stage, sms, clock)
         for name, t in times.items():
-            log(f"{name} at {stage} {tuple(t['shape'])}: kernel "
-                f"{t['ms']:.4f} ms ({t['ms_from']}), a wrapper call "
-                f"{t['call_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; bytes "
-                f"{t['bytes_ms']:.6f}, issue {t['ops_ms']:.6f}), launch "
-                f"floor {floor['ms']:.4f} ms; {t['bound_ms'] / t['ms']:.3f} "
-                f"of the bound")
+            log_time(name, stage, t, floor["ms"])
         parts = times["l2_deinterleave"]["ms"] + times["rs_verify"]["ms"]
         log(f"L2P at {stage}: {times['l2_payload']['ms']:.4f} ms against "
             f"L2D + RS {parts:.4f} ms in this call "
@@ -1325,9 +1680,11 @@ def capture_mesh_inputs(scene, shape) -> tuple[list, tuple]:
     gets on the merged (C, Tn*K) slot grid, on the second wideband block
     of the gated mesh at ``shape``."""
     from dumpvdl2_tpu_torch.core.mesh_pipeline import MeshPipeline
+    kc, _ = front_modules()
     freqs, fs, os_, sig, _, _ = scene
-    planes, gates = [], []
+    planes, gates, dets = [], [], []
     orig_k1, orig_g1 = sync_kernel.sync_error_metric_cuda, gate_kernel.gate
+    orig_kc = kc.candidates_cuda
 
     def k1(ph):
         planes.append(ph)
@@ -1337,25 +1694,41 @@ def capture_mesh_inputs(scene, shape) -> tuple[list, tuple]:
         gates.append(a)
         return orig_g1(*a)
 
+    def kc_spy(*a):
+        dets.append(a)
+        return orig_kc(*a)
+
     pipe = MeshPipeline(freqs, int(CENTER), fs, os_, mesh_shape=shape,
                         devices=mesh_devices(shape))
     sync_kernel.sync_error_metric_cuda, gate_kernel.gate = k1, g1
+    kc.candidates_cuda = kc_spy
     try:
         for b in range(2):
             pipe.feed_planar(sig[:, b * WIDEBAND_BLOCK:
                                  (b + 1) * WIDEBAND_BLOCK])
     finally:
         sync_kernel.sync_error_metric_cuda, gate_kernel.gate = orig_k1, orig_g1
+        kc.candidates_cuda = orig_kc
     n = shape[0] * shape[1]
-    return planes[n:2 * n], gates[-1]
+    return planes[n:2 * n], gates[-1], dets[n:2 * n]
 
 
 def check_mesh_kernels(scene, shape) -> float:
-    """K1 and G1 against their plain versions at the shapes the mesh
+    """K1, KC and G1 against their plain versions at the shapes the mesh
     path gives them: every shard's phase plane of a real block (equal
-    inf and detection masks) and the real merged slot grid.  Returns
-    K1's largest |d err|."""
-    planes, ga = capture_mesh_inputs(scene, shape)
+    inf and detection masks), every shard's metric planes with its
+    detection window (detect_lo = the halo, detect_hi), and the real
+    merged slot grid.  Returns K1's largest |d err|."""
+    planes, ga, kc_args = capture_mesh_inputs(scene, shape)
+    for t, a in enumerate(kc_args):
+        r = compare_kc(a, f"mesh {shape} shard {t}")
+        log(f"KC mesh {shape} shard {t} {tuple(r['shape'])}, detect "
+            f"window [{a[5]}, {a[6]}): {r['leaders']} leaders, equal to "
+            f"its plain version")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log_time("find_candidates (KC)", f"mesh {shape} shard 0",
+             time_kc(kc_args[0], sms, max_sm_clock_hz()),
+             launch_floor()["ms"])
     err = 0.0
     for t, ph in enumerate(planes):
         res, (e_k, e_p) = compare_k1(ph, f"mesh {shape} shard {t} "
@@ -1383,6 +1756,7 @@ def mesh_phase(scene, single_frames) -> dict:
     that its thousands of small launches and allocations come after the
     single-device timings, as in earlier versions of this script.)"""
     _, l2_kernel = l2_modules()
+    kc, _ = front_modules()
     for k in (128, 256, 512):
         compare_g1(gate_grid(256, k, 9 + k), 5.0, False, 3 * 17476,
                    f"(256, {k}) mesh slots")
@@ -1404,13 +1778,15 @@ def mesh_phase(scene, single_frames) -> dict:
         restore = [count_calls(gate_kernel, GATE_PLAIN, plain_calls),
                    count_calls(l2_kernel, L2_PLAIN, plain_calls),
                    count_calls(sync_kernel, ("sync_error_metric_plain",),
-                               plain_calls)]
+                               plain_calls),
+                   count_calls(kc, ("candidates_plain",), plain_calls)]
         try:
             reset_launches()
             t0 = time.perf_counter()
             frames, rereads = run_mesh(scene, shape)
             dt = time.perf_counter() - t0
             launches = {"sync_error_metric": sync_kernel.launches,
+                        "find_candidates": kc.launches,
                         **gate_kernel.launches, **l2_kernel.launches}
         finally:
             for r in restore:
@@ -1421,9 +1797,10 @@ def mesh_phase(scene, single_frames) -> dict:
             raise AssertionError(f"{label}: plain versions ran on the card: "
                                  f"{plain_calls}")
         expect = {"sync_error_metric": n_shards * WIDEBAND_BLOCKS + 1,
+                  "find_candidates": n_shards * WIDEBAND_BLOCKS + 1,
                   "gate": WIDEBAND_BLOCKS + 1,
-                  "nf_track": WIDEBAND_BLOCKS + 1,
-                  **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
+                  "nf_track": WIDEBAND_BLOCKS + 1, "l2_front": 0,
+                  **{k: WIDEBAND_BLOCKS + 1 for k in L2_MESH_KERNELS},
                   **{k: 0 for k in L2_STANDALONE}}
         if launches != expect:
             raise AssertionError(f"{label} launched {launches}, expected "
@@ -1568,12 +1945,22 @@ def profile_phase() -> dict:
     recs = tool.run("cuda", blocks=3, mesh_devices=mesh_devices((1, 2)))
     for line in tool.summary(recs):
         log(f"profile: {line}")
-    return {"records": recs}
+    single = next(r for r in recs if r.get("scene") == "single"
+                  and "synced_stage_trace" in r)
+    # information only: kernels are split by their midpoints between the
+    # steps' annotations, so a short kernel at a step's edge can land in
+    # its neighbour (check_l2's l2_step_launches counts the L2 step)
+    by_stage = single["synced_stage_trace"]["kernels_by_stage"]
+    log(f"profile: kernels a block by stage (steps synchronized, split by "
+        f"the kernels' midpoints): {by_stage}")
+    return {"records": recs, "kernels_by_stage": by_stage}
 
 
 def reset_launches() -> None:
     _, l2_kernel = l2_modules()
+    kc, _ = front_modules()
     sync_kernel.launches = 0
+    kc.launches = 0
     for k in gate_kernel.launches:
         gate_kernel.launches[k] = 0
     for k in l2_kernel.launches:
@@ -1613,7 +2000,13 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     """One mode of the wideband path: a warm-up, the counted and timed
     run, and a synchronized breakdown run.  Returns the kernel launches
     of the timed run, its frames and its numbers."""
-    _, l2_kernel = l2_modules()
+    l2_step, l2_kernel = l2_modules()
+    kc, _ = front_modules()
+    from dumpvdl2_tpu_torch.core import pipeline
+    from dumpvdl2_tpu_torch.dsp import demod
+    front_mods = {"candidates_kernel": kc, "demod": demod,
+                  "pipeline": pipeline, "l2_kernel": l2_kernel,
+                  "l2_step": l2_step}
     freqs, fs, os_, sig, want, _ = scene
     mode = "gated" if device_gate else "host-gated"
     # warm-up on a fresh pipeline: library handles, allocator pools
@@ -1623,16 +2016,20 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain_calls: dict = {}
+    front_calls: dict = {}
     spec_calls: dict = {}
     restore = [count_calls(gate_kernel, GATE_PLAIN, plain_calls),
                count_calls(l2_kernel, L2_PLAIN, plain_calls),
                count_calls(unstuff, ("_frames_py",), spec_calls)]
+    restore += [count_calls(front_mods[m], names, front_calls)
+                for m, names in FRONT_PLAIN.items()]
     try:
         reset_launches()
         t0 = time.perf_counter()
         frames = run_wideband(freqs, fs, os_, sig, device_gate=device_gate)
         dt = time.perf_counter() - t0
         launches = {"sync_error_metric": sync_kernel.launches,
+                    "find_candidates": kc.launches,
                     **gate_kernel.launches, **l2_kernel.launches}
         native_calls = dict(native.calls)
     finally:
@@ -1642,9 +2039,12 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     if any(plain_calls.values()):
         raise AssertionError(f"wideband {mode}: plain versions of the gate "
                              f"or L2 kernels ran on the card: {plain_calls}")
-    if not all(launches[k] for k in L2_KERNELS) \
-            or any(launches[k] for k in L2_STANDALONE):
-        raise AssertionError(f"wideband {mode}: an L2 kernel of the main "
+    if any(front_calls.values()):
+        raise AssertionError(f"wideband {mode}: plain detect or L2-front "
+                             f"functions ran on the card: {front_calls}")
+    if not all(launches[k] for k in L2_KERNELS + ("find_candidates",)) \
+            or any(launches[k] for k in L2_STANDALONE + ("l2_header",)):
+        raise AssertionError(f"wideband {mode}: a kernel of the main "
                              f"path never launched, or another did: "
                              f"{launches}")
 
@@ -1662,7 +2062,8 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
                              f"{spec_calls}")
     log(f"wideband {mode}: {len(want)}/{len(want)} payloads decoded "
         f"({len(frames)} frames), kernel launches on this run: {launches}; "
-        f"plain gate and L2 calls {plain_calls}; native library calls "
+        f"plain gate and L2 calls {plain_calls}, plain detect and L2-front "
+        f"calls {front_calls}; native library calls "
         f"{native_calls}, Python spec calls {spec_calls}")
     log(f"wideband {mode}: {n} samples in {dt:.4f} s -> {msps:.3f} "
         f"Msamples/s sustained, realtime factor {msps / (fs / 1e6):.3f} "
@@ -1864,9 +2265,10 @@ def main() -> int:
     launches, gated_frames, wb = wideband_path(scene, device_gate=True)
     # each kernel once a block and once at EOF
     want = {"sync_error_metric": WIDEBAND_BLOCKS + 1,
+            "find_candidates": WIDEBAND_BLOCKS + 1,
             "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1,
             **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
-            **{k: 0 for k in L2_STANDALONE}}
+            "l2_header": 0, **{k: 0 for k in L2_STANDALONE}}
     if launches != want:
         raise AssertionError(f"the gated wideband path launched {launches}, "
                              f"expected {want}")
@@ -1895,8 +2297,17 @@ def main() -> int:
               "dumpvdl2_tpu/core/nf_gate.py:133", g1, g1["max_abs_err"]),
         entry("nf_track", "dumpvdl2_tpu_torch/csrc/gate.cu",
               "dumpvdl2_tpu/core/nf_gate.py:186", g2, g2["max_abs_err"]),
+        entry("find_candidates", "dumpvdl2_tpu_torch/csrc/candidates.cu",
+              "dumpvdl2_tpu/dsp/demod.py:159", l2["kc"]["times"]["block"],
+              0),
+        entry("l2_front", "dumpvdl2_tpu_torch/csrc/l2.cu",
+              "dumpvdl2_tpu/core/pipeline.py:121",
+              l2["times"]["l2_front"], max(
+                  r["front"]["frame_pwr_max_abs_err"]
+                  for r in l2["real"].values())),
         entry("l2_header", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/l2_tpu.py:63", l2["times"]["l2_header"], 0),
+        # the main path's L2P runs behind its compaction prologue
         entry("l2_payload", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/l2_tpu.py:63",
               l2["times"]["l2_payload"], 0),

@@ -122,18 +122,15 @@ def _result_from_batch(out: dict, i: int) -> BurstResult:
     last_len = int(out["last_len"][i])
     bi = i
     if "blocks_row" in out:
-        # blocks were second-stage compacted to hdr-ok rows on device
-        # (core/pipeline._compact_blocks, or l2_decode_batch's
-        # rs_burst_cap pre-compute compaction)
+        # the payload stage ran on the hdr-ok compaction's rows
+        # (l2_decode_batch's rs_burst_cap): blocks, counts and fec_row
+        # are at the compacted row
         bi = int(out["blocks_row"][i])
         if bi < 0:
             res.reason = "l2_overflow"
             return res
-    # counts/fec_row ride at the compacted index when the RS stage
-    # itself was compacted (their row count matches blocks, not B)
-    ci = bi if out["counts"].shape[0] == out["blocks"].shape[0] else i
-    counts = out["counts"][ci]
-    fec_row = out["fec_row"][ci]
+    counts = out["counts"][bi]
+    fec_row = out["fec_row"][bi]
     rows = []
     for r in range(num_blocks):
         res.blocks_processed += 1

@@ -41,6 +41,17 @@ def process_block(iq: torch.Tensor, taps: torch.Tensor, dphi: torch.Tensor,
     return cands, new_hist, new_carry, pwr3
 
 
+def detect_planes(block: torch.Tensor, threshold: float = SYNC_THRESHOLD,
+                  max_candidates: int = 64, max_symbols: int = 5616):
+    """Detections of a (2, C, M) planar decimated block, with its phase
+    and power planes (C, M) for the sliced L2 step: ``(dets, phases,
+    pwr)``."""
+    phases = torch.atan2(block[1], block[0])
+    pwr = block[0] * block[0] + block[1] * block[1]
+    dets = find_candidates(phases, threshold, max_candidates, max_symbols)
+    return dets, phases, pwr
+
+
 def process_block_detect(iq: torch.Tensor, taps: torch.Tensor,
                          dphi: torch.Tensor, n0: int, carry: torch.Tensor,
                          hist: torch.Tensor, oversample: int, halo: int,
@@ -57,9 +68,8 @@ def process_block_detect(iq: torch.Tensor, taps: torch.Tensor,
     dec, new_carry = bandpass_channelize(iq, taps, dphi, n0, carry,
                                          oversample)
     block = torch.cat([hist, dec], dim=2)
-    phases = torch.atan2(block[1], block[0])
-    pwr = block[0] * block[0] + block[1] * block[1]
-    dets = find_candidates(phases, threshold, max_candidates, max_symbols)
+    dets, phases, pwr = detect_planes(block, threshold, max_candidates,
+                                      max_symbols)
     keep = min(halo, block.shape[2])
     new_hist = block[:, :, block.shape[2] - keep:].contiguous()
     # noise-tracker stream: every 3rd decimated power of the fresh part

@@ -46,7 +46,8 @@ from ..constants import (HEADER_LEN, MAG_LP, NF_LP, SPS, SYMBOL_RATE,
 from ..dsp.chebyshev import fir_taps
 from ..dsp.demod import demod_window, find_and_slice, slice_windows
 from ..dsp.frontend import nco_dphi, prepare_taps, to_planar
-from ..fec.l2 import l2_decode_batch
+from ..fec import l2_kernel
+from ..fec.l2 import decode_payload, frame_power, l2_decode_batch
 from ..fec.scramble import descramble
 from ..utils.bits import symbols_to_bits_msb
 from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
@@ -54,7 +55,7 @@ from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
 from ..utils.devices import resolve_device
 from ..utils.fetch import coalesced_get
 from . import nf_gate
-from .device import process_block, process_block_detect
+from .device import detect_planes, process_block, process_block_detect
 from .gate_scan import (V_DEFER_DATA, V_EMPTY, V_EOF_TRUNC, V_HDR_REJECT,
                         V_L2_OVERFLOW, V_PPM_REJECT, V_SKIP, V_UNPROCESSED)
 from .metadata import DecodedFrame, MsgMetadata
@@ -76,51 +77,32 @@ def _error_counter(reason: str) -> str:
     return "decoder.errors." + reason
 
 
-def _compact_rows(keep: torch.Tensor, cap: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable compaction: the first ``cap`` indices with ``keep`` set
-    (then the others, in index order), and the inverse map index ->
-    compacted row (-1 = not taken)."""
-    order = torch.argsort((~keep).to(torch.int32), stable=True)
-    take = order[:cap]
-    inv = torch.full(keep.shape, -1, dtype=torch.int32, device=keep.device)
-    inv[take] = torch.arange(cap, dtype=torch.int32, device=keep.device)
-    return take, inv
-
-
-def _compact_blocks(l2: dict, cap: int) -> dict:
-    """Second-stage compaction of the (cap, MAX_BLOCKS, 255) corrected
-    codewords to the hdr-ok rows; ``blocks_row`` maps row -> compacted
-    row (-1 = overflow, reported as decoder.errors.l2_overflow)."""
-    cap2 = min(cap, max(128, cap // 4))
-    if cap2 >= cap:
-        return l2
-    take, inv = _compact_rows(l2["hdr_ok"], cap2)
-    l2 = dict(l2)
-    l2["blocks"] = l2["blocks"][take]
-    l2["blocks_row"] = inv
-    return l2
+def _rs_cap(cap: int) -> int:
+    """Rows of L2P behind the hdr-ok compaction for a batch of ``cap``
+    rows."""
+    return min(cap, max(128, cap // 4))
 
 
 def _slot_compaction(count: torch.Tensor, K: int):
     """``(take, inv)`` for the slots ``k < count[c]`` of a (C, K) slot
-    grid, capped at max(256, 4C) rows; ``inv`` is None when every slot
-    fits."""
+    grid, capped at l2_kernel.slot_cap rows; ``inv`` is None when every
+    slot fits."""
     C = count.shape[0]
     total = C * K
-    cap = min(total, max(256, 4 * C))
+    cap = l2_kernel.slot_cap(C, K)
     if cap >= total:
         return torch.arange(total, device=count.device), None
     k_idx = torch.arange(K, dtype=torch.int32, device=count.device)
     valid = (k_idx[None, :] < count[:, None]).reshape(total)
-    return _compact_rows(valid, cap)
+    return l2_kernel.compact_rows(valid, cap)
 
 
 def launch_compacted_l2(symbols: torch.Tensor, power: torch.Tensor,
                         count: torch.Tensor, K: int):
     """Compact (C, K, S) candidate slots and run the batched L2 decode
-    (the EOF path, on fully sliced candidates).  Returns ``(l2, inv)``
-    with ``inv`` mapping flat slot -> L2 row (-1 = overflowed the cap,
+    (the mesh, on fully sliced candidates), its payload stage behind the
+    hdr-ok compaction at _rs_cap rows.  Returns ``(l2, inv)`` with
+    ``inv`` mapping flat slot -> L2 row (-1 = overflowed the cap,
     counted by the host as demod.sync.overflow), or None when no
     compaction was needed."""
     total = count.shape[0] * K
@@ -129,19 +111,25 @@ def launch_compacted_l2(symbols: torch.Tensor, power: torch.Tensor,
     take, inv = _slot_compaction(count, K)
     if inv is None:
         return l2_decode_batch(syms, MAX_BURST_SYMS, pwr), None
-    l2 = l2_decode_batch(syms[take], MAX_BURST_SYMS, pwr[take])
-    return _compact_blocks(l2, take.shape[0]), inv
+    return l2_decode_batch(syms[take], MAX_BURST_SYMS, pwr[take],
+                           rs_burst_cap=_rs_cap(take.shape[0])), inv
 
 
-def l2_sliced(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
-              sync_idx: torch.Tensor, dphi: torch.Tensor, K: int, S: int):
-    """Compact candidate slots, slice their symbol windows from the
-    block's phase/power planes and run the batched L2 decode.
+def l2_front_plain(phases: torch.Tensor, pwr: torch.Tensor,
+                   count: torch.Tensor, sync_idx: torch.Tensor,
+                   dphi: torch.Tensor, K: int, S: int) -> dict:
+    """Plain front of the sliced L2 step: compact the candidate slots,
+    slice their symbol windows from the block's phase and power planes
+    and demodulate them, then L2H's header and the frame power.
 
-    Same compaction order, cap and ``inv`` semantics as
-    launch_compacted_l2, but windows exist only for the compacted rows,
-    gathered at the symbol rate (indices sp + SPS*s, zero past the
-    block end) -- element-identical to find_and_slice's windows.
+    ``phases``/``pwr`` (C, M) float32, ``count`` (C,) int32,
+    ``sync_idx`` (C, K) int32 and ``dphi`` (C, K) float32 (the block's
+    detections).  Returns a dict: ``take`` (cap,) int64 the slot of each
+    row (_slot_compaction), ``inv`` (C K,) int32 slot -> row (-1 =
+    overflowed the cap) or None, ``symbols`` (cap, S) uint8, L2H's
+    fields (l2_kernel.l2_header_plain) and ``frame_pwr`` (cap,) float32.
+    Windows are read at ``sp + SPS*s``, zero past the block end,
+    element-identical to find_and_slice's.
     """
     C = count.shape[0]
     take, inv = _slot_compaction(count, K)
@@ -151,10 +139,48 @@ def l2_sliced(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
     sym_phase = slice_windows(phases, c_row, sp_row, S + 1)
     power_all = slice_windows(pwr, c_row, sp_row, S + 1)
     symbols, power = demod_window(sym_phase, power_all, dphi_row)
-    cap = take.shape[0]
-    l2 = l2_decode_batch(symbols, S, power,
-                         rs_burst_cap=min(cap, max(128, cap // 4)))
-    return l2, inv
+    hdr = l2_kernel.l2_header_plain(symbols)
+    return {"take": take, "inv": inv, "symbols": symbols, **hdr,
+            "frame_pwr": frame_power(power, hdr["hdr_ok"],
+                                     hdr["bits_consumed"])}
+
+
+def l2_front(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
+             sync_idx: torch.Tensor, dphi: torch.Tensor, K: int, S: int
+             ) -> dict:
+    """The sliced L2 step's front on the tensors' device: kernel L2H's
+    front (l2_kernel.l2_front_cuda) on CUDA, l2_front_plain on CPU."""
+    if phases.device.type == "cuda":
+        return l2_kernel.l2_front_cuda(phases, pwr, count, sync_idx, dphi,
+                                       K, S)
+    if phases.device.type != "cpu":
+        raise ValueError(f"unsupported device {phases.device}")
+    return l2_front_plain(phases, pwr, count, sync_idx, dphi, K, S)
+
+
+def l2_sliced(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
+              sync_idx: torch.Tensor, dphi: torch.Tensor, K: int, S: int,
+              flush: bool = False):
+    """Compact candidate slots, slice their symbol windows from the
+    block's phase/power planes and run the batched L2 decode: on CUDA
+    two kernels, the front (l2_front) and L2P behind the hdr-ok
+    compaction at _rs_cap rows.
+
+    Same compaction order, cap and ``inv`` semantics as
+    launch_compacted_l2, but windows exist only for the compacted rows,
+    gathered at the symbol rate (indices sp + SPS*s, zero past the
+    block end) -- element-identical to find_and_slice's windows.  With
+    ``flush`` (the EOF batch) every row is decoded when every slot fits,
+    so the result equals launch_compacted_l2's on the fully sliced
+    candidates.  Returns ``(l2, inv)``: the batch's result dict (with
+    ``frame_pwr``) and the map slot -> row, or None when every slot
+    fits.
+    """
+    front = l2_front(phases, pwr, count, sync_idx, dphi, K, S)
+    take, inv = front.pop("take"), front.pop("inv")
+    symbols, frame_pwr = front.pop("symbols"), front.pop("frame_pwr")
+    rs_cap = None if flush and inv is None else _rs_cap(take.shape[0])
+    return decode_payload(symbols, front, frame_pwr, rs_cap), inv
 
 
 def mag16(pwr3: torch.Tensor) -> torch.Tensor:
@@ -782,32 +808,39 @@ class VDL2Pipeline:
             self._fetch_pool = None
         if self.hist.shape[2] == 0:
             return frames
-        cands = find_and_slice(self.hist, SYNC_THRESHOLD,
-                               self.max_candidates, MAX_BURST_SYMS)
         if not self.use_device_l2:
+            cands = find_and_slice(self.hist, SYNC_THRESHOLD,
+                                   self.max_candidates, MAX_BURST_SYMS)
             fetched = coalesced_get(self._candidate_fields(cands, True))
             frames.extend(self._process_candidates(
                 self.hist_base, True, fetched, None, None))
             return frames
-        l2, l2_map = launch_compacted_l2(cands.symbols, cands.power,
-                                         cands.count, self.max_candidates)
+        # device L2: the halo's detections, then the sliced L2 step (the
+        # batch launch_compacted_l2 gives on the fully sliced candidates)
+        dets, phases, pwr = detect_planes(self.hist, SYNC_THRESHOLD,
+                                          self.max_candidates,
+                                          MAX_BURST_SYMS)
+        l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
+                               dets.dphi, self.max_candidates,
+                               MAX_BURST_SYMS, flush=True)
+        del phases, pwr
         if l2_map is not None:
             l2_map = l2_map.reshape(len(self.channels), self.max_candidates)
         if self.use_device_gate:
             # EOF through the device gate: no fresh magnitude columns
             gout, self._gate_state = nf_gate.gate_only(
-                cands.count, cands.det_idx, cands.sync_idx,
-                cands.sym_valid, cands.dphi, self._gate_rows(l2_map),
+                dets.count, dets.det_idx, dets.sync_idx,
+                dets.sym_valid, dets.dphi, self._gate_rows(l2_map),
                 l2["hdr_ok"], l2["bits_consumed"],
                 self._gate_delta(self.hist_base), self._gate_state_now(),
                 self._freqs_f32, self.max_ppm, eof=True)
             gout_np, fetched, l2_np, l2_map_np = coalesced_get(
-                (gout, self._candidate_fields(cands), l2, l2_map))
+                (gout, self._candidate_fields(dets), l2, l2_map))
             frames.extend(self._process_verdicts(
                 gout_np, fetched, l2_np, l2_map_np, self.hist_base))
             return frames
         fetched, l2_np, l2_map_np = coalesced_get(
-            (self._candidate_fields(cands), l2, l2_map))
+            (self._candidate_fields(dets), l2, l2_map))
         frames.extend(self._process_candidates(
             self.hist_base, True, fetched, l2_np, l2_map_np))
         return frames

@@ -1,26 +1,59 @@
-// L2 kernels L2H (l2_header), L2P (l2_payload), L2D (l2_deinterleave)
-// and RS (rs_verify) for Hopper (sm_90a).
+// L2 kernels L2H (l2_header, and l2_front: the sliced L2 step's front),
+// L2P (l2_payload), L2D (l2_deinterleave) and RS (rs_verify) for Hopper
+// (sm_90a).
 //
 // These replace the XLA stages of the JAX package's L2 step, which it
-// compiles into one executable (dumpvdl2_tpu/core/pipeline.py:204,
+// compiles into one executable (dumpvdl2_tpu/core/pipeline.py:121-204,
 // fec/l2_tpu.py:63, fec/rs_tpu.py:120 and :252), not TPU kernels.  The
 // plain versions are in dumpvdl2_tpu_torch/fec/l2_kernel.py
-// (l2_header_plain, l2_payload_plain, l2_deinterleave_plain,
-// rs_verify_plain); on a CUDA tensor the wrappers there launch these.
-// Every output is an integer or a byte and equals the plain version's
-// exactly, on any input: int32 sums wrap as PyTorch's do (wadd, wmul),
-// and every GF(256) product is the exact field product, however the
-// plain version forms it (log tables or carry-less shifts).  The
-// constant tables (exp/log, the header syndrome table, its weights and
-// parity rows, the PRBS and its octets) come from the port's Python
-// tables, through the wrappers.
+// (l2_front_plain, l2_header_plain, l2_payload_plain,
+// l2_payload_capped_plain, l2_deinterleave_plain, rs_verify_plain); on a
+// CUDA tensor the wrappers there launch these.
+// Every output but the frame power is an integer or a byte and equals
+// the plain version's exactly, on any input: int32 sums wrap as
+// PyTorch's do (wadd, wmul), and every GF(256) product is the exact field
+// product, however the plain version forms it (log tables or carry-less
+// shifts).  The constant tables (exp/log, the header syndrome table, its
+// weights and parity rows, the PRBS and its octets, the Gray code) come
+// from the port's Python tables, through the wrappers.
 //
 // L2H l2_header replaces fec/l2_tpu.py:63's header part: the 25 header
 //   bits from the first 9 symbols, descrambled, the (25,20) header FEC,
 //   the bit-reversed transmission length, the reserved/too-long/no-FEC
-//   checks and the RS geometry.  A thread a burst.  Bound: it reads 9
-//   symbols a burst and writes 36 bytes: under 0.1 us for 1 024 bursts;
-//   what it takes is a launch.
+//   checks and the RS geometry (write_header).  A thread a burst.  Bound:
+//   it reads 9 symbols a burst and writes 36 bytes: under 0.1 us for
+//   1 024 bursts; what it takes is a launch.  It runs on pre-sliced
+//   symbols (the mesh's launch_compacted_l2, l2_decode_batch).
+//
+// L2H l2_front replaces the front of the sliced L2 step,
+//   dumpvdl2_tpu/core/pipeline.py:121-188 (_l2_sliced_impl up to the
+//   decode) with demod.py:245-258 (demod_window), the header part of
+//   fec/l2_tpu.py:63 and its frame power.  The plain version runs ~40
+//   launches: an argsort and index put for the slot compaction, two
+//   (cap, S + 1) gathers, the D8PSK passes, L2H, and the frame-power
+//   mask and sum.  Here a CTA takes a row r of the cap = min(C K,
+//   max(256, 4 C)) rows:
+//   1. its slot: when the slots do not all fit, valid slots (k <
+//      count[c]) first, then the others, each in index order.  A block
+//      scan of min(count, K) over the channels gives nv and each
+//      channel's valid slots before it pv (and empty ones, c K - pv), so
+//      row r is valid slot r - pv of its channel or empty slot vc + (r -
+//      nv - pi); the CTA also writes inv (slot -> row, -1 past the cap)
+//      for the channels c == r (mod cap);
+//   2. the window: phases at start + SPS j, j <= S, start = clamp(sp, 0,
+//      M), zero past M, into shared memory;
+//   3. the decisions: (ph[s+1] - ph[s]) - dphi, the two 2 pi wraps with
+//      the float32 constant, an IEEE division by the float32 pi / 4,
+//      round half to even, mod 8, the Gray code; the (cap, S) symbols L2P
+//      reads;
+//   4. the header (write_header) from the first 9 symbols;
+//   5. the frame power of an accepted row: the mean of pwr at start +
+//      SPS (s + 1), s < max(ceil(bits_consumed / 3), 1), summed in double
+//      (the plain float32 sum runs in another order: rtol 1e-6), else 0.
+//   Bound: bytes, the distinct samples its windows read (empty slots of
+//   a channel share one) and the symbols out: ~9 MB a wideband block;
+//   the window gathers are strided (SPS floats apart) and each row waits
+//   on them before its decisions.
 //
 // L2P l2_payload replaces the payload part of the same function and
 //   fec/rs_tpu.py:252 rs_verify_batch (with :120 rs_decode_batch) on the
@@ -44,6 +77,11 @@
 //   5. warp r decodes row r in place (rs_decode_row): a row without
 //      parity or with a zero syndrome stops at once;
 //   6. the table goes out in coalesced byte stores, then the counts.
+//   CTA bp decodes row bp, or where the batch is capped (the sliced
+//   path, the mesh) the hdr-ok compaction's row bp: it finds that row by
+//   a block scan of hdr_ok over the B rows (accepted rows first, each
+//   part in index order; compact_row) and writes blocks_row for the
+//   rows i == bp (mod Bp).
 //   Geometry that no header gives (the wrapper takes any) packs all
 //   2 100 octets, so the gather's clamp reads what the plain one reads.
 //   Bound: bytes, the accepted bursts' staged symbols and the table out
@@ -99,6 +137,13 @@ constexpr int kConstBytes = 2880;
 constexpr int kSymStage = 5632;
 
 constexpr int kHeaderThreads = 128;            // L2H: bursts a CTA
+constexpr int kFrontThreads = 256;             // the front: a row a CTA
+constexpr int kFrontWin = 8192;                // the front: S + 1 at most
+constexpr int kHeaderSyms = (kHeaderLen + 2) / 3;  // 9 symbols
+constexpr int kSps = 10;                       // SPS
+constexpr int kArity = 8;                      // ARITY
+constexpr float kTwoPi = 6.28318548202514648f;       // float32(2 pi)
+constexpr float kQuarterPi = 0.785398185253143311f;  // float32(pi / 4)
 constexpr int kPayloadThreads = 32 * kMaxBlocks;  // L2P, L2D: a warp a row
 constexpr int kRsWarps = 8;                    // RS: rows a CTA
 constexpr int kPerLane = 8;                    // positions a lane
@@ -159,14 +204,14 @@ __device__ __forceinline__ void stage_consts(uint8_t* dst,
 }
 
 // ----------------------------------------------------------------- L2H
-__global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
-    const uint8_t* __restrict__ symbols, int B, int S,
-    const int* __restrict__ synd_table, const int* __restrict__ synd_weight,
-    const int* __restrict__ h_rows, const uint8_t* __restrict__ prbs,
-    int* __restrict__ out, uint8_t* __restrict__ flags) {
-  const int b = blockIdx.x * kHeaderThreads + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* row = symbols + static_cast<long long>(b) * S;
+// The header and geometry of burst b of B from its first 9 symbols
+// (`row`, global or shared), written at b of L2H's outputs.  Returns
+// hdr_ok; *bits gets bits_consumed.
+__device__ __forceinline__ bool write_header(
+    const uint8_t* row, int b, int B, const int* __restrict__ synd_table,
+    const int* __restrict__ synd_weight, const int* __restrict__ h_rows,
+    const uint8_t* __restrict__ prbs, int* __restrict__ out,
+    uint8_t* __restrict__ flags, int* bits) {
   int word = 0;
   for (int i = 0; i < kHeaderLen; ++i)
     word |= clear_bit(row, prbs, i) << (kHeaderLen - 1 - i);
@@ -188,6 +233,8 @@ __global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
   const int fec_last = r == 0 ? 0 : fec_octetcount(r);
   const int fec_total = q * (kRsN - kRsK) + fec_last;
   const bool no_fec = fec_total == 0;
+  const bool ok = !reserved_bad && !too_long && !no_fec;
+  *bits = kHeaderLen + 8 * (doct + fec_total);
   // int32 results in HDR_INT order, then the flags in HDR_BOOL order
   out[b] = synd;
   out[B + b] = synd_weight[synd];
@@ -195,12 +242,25 @@ __global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
   out[3 * B + b] = doct;
   out[4 * B + b] = q + (r != 0);                          // num_blocks
   out[5 * B + b] = r == 0 ? kRsK : r;                     // last_len
-  out[6 * B + b] = kHeaderLen + 8 * (doct + fec_total);   // bits_consumed
+  out[6 * B + b] = *bits;                                 // bits_consumed
   out[7 * B + b] = r == 0 ? kRsN - kRsK : fec_last;       // lf
   flags[b] = reserved_bad;
   flags[B + b] = too_long;
   flags[2 * B + b] = no_fec;
-  flags[3 * B + b] = !reserved_bad && !too_long && !no_fec;
+  flags[3 * B + b] = ok;
+  return ok;
+}
+
+__global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
+    const uint8_t* __restrict__ symbols, int B, int S,
+    const int* __restrict__ synd_table, const int* __restrict__ synd_weight,
+    const int* __restrict__ h_rows, const uint8_t* __restrict__ prbs,
+    int* __restrict__ out, uint8_t* __restrict__ flags) {
+  const int b = blockIdx.x * kHeaderThreads + threadIdx.x;
+  if (b >= B) return;
+  int bits;
+  write_header(symbols + static_cast<long long>(b) * S, b, B, synd_table,
+               synd_weight, h_rows, prbs, out, flags, &bits);
 }
 
 // --------------------------------------------------------- L2P and L2D
@@ -411,8 +471,8 @@ __device__ int rs_decode_row(uint8_t* row, int fo,
 // kPayloadThreads; see L2P above.
 template <bool kDecode>
 __device__ __forceinline__ void payload_body(
-    const uint8_t* __restrict__ symbols, int S,
-    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const uint8_t* __restrict__ symbols, int S, long long src_row,
+    const uint8_t* __restrict__ hdr_ok,
     const int* __restrict__ num_blocks, const int* __restrict__ last_len,
     const int* __restrict__ lf, const int* __restrict__ doct,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
@@ -422,7 +482,6 @@ __device__ __forceinline__ void payload_body(
   __shared__ uint8_t oct_s[kMaxTotalOct];
   __shared__ uint8_t tab_s[kCells];
   const int bp = blockIdx.x;
-  const long long src_row = sel != nullptr ? sel[bp] : bp;
   // the five loads at once; rejected bursts carry geometry 0
   const bool ok = hdr_ok[src_row] != 0;
   const int nb_in = num_blocks[src_row];
@@ -489,14 +548,86 @@ __device__ __forceinline__ void payload_body(
     out[c] = tab_s[c];
 }
 
+// Exclusive scan of v over a CTA of kW warps; *total gets the sum.
+// Every thread of the CTA must call it.
+template <int kW>
+__device__ __forceinline__ int block_excl_scan(int v, int* warp_buf,
+                                               int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kW ? warp_buf[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += y;
+    }
+    if (lane < kW) warp_buf[lane] = w;           // inclusive warp totals
+  }
+  __syncthreads();
+  const int before = warp == 0 ? 0 : warp_buf[warp - 1];
+  *total = warp_buf[kW - 1];
+  __syncthreads();                               // warp_buf free again
+  return before + x - v;
+}
+
+// L2P's compaction prologue: the row of the hdr-ok compaction (the
+// stable order of fec/l2.py, accepted rows first, each part in index
+// order) at position bp of Bp, found by a block scan of hdr_ok over the
+// B rows.  The CTA also writes blocks_row (row -> position, -1 past Bp)
+// for the rows i == bp (mod Bp), so the CTAs together write all of it.
+__device__ long long compact_row(const uint8_t* __restrict__ hdr_ok, int B,
+                                 int Bp, int bp,
+                                 int* __restrict__ blocks_row) {
+  constexpr int kW = kPayloadThreads / 32;
+  __shared__ int warp_buf[kW];
+  __shared__ int row_s;
+  int n = 0;
+  for (int i = threadIdx.x; i < B; i += kPayloadThreads) n += hdr_ok[i] != 0;
+  int n_ok;
+  block_excl_scan<kW>(n, warp_buf, &n_ok);
+  int ok_before = 0;                             // accepted rows before chunk
+  for (int i0 = 0; i0 < B; i0 += kPayloadThreads) {
+    const int i = i0 + threadIdx.x;
+    const bool ok = i < B && hdr_ok[i] != 0;
+    int chunk_ok;
+    const int okb = ok_before +
+        block_excl_scan<kW>(ok ? 1 : 0, warp_buf, &chunk_ok);
+    if (i < B) {
+      const int pos = ok ? okb : n_ok + (i - okb);
+      if (pos == bp) row_s = i;
+      if (i % Bp == bp) blocks_row[i] = pos < Bp ? pos : -1;
+    }
+    ok_before += chunk_ok;
+  }
+  __syncthreads();
+  return row_s;
+}
+
+// L2P: with blocks_row set the CTA finds its row (compact_row), else it
+// takes row bp.
 __global__ void __launch_bounds__(kPayloadThreads) l2_payload_kernel(
-    const uint8_t* __restrict__ symbols, int S,
-    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
+    const uint8_t* __restrict__ symbols, int S, int B,
+    const uint8_t* __restrict__ hdr_ok,
     const int* __restrict__ num_blocks, const int* __restrict__ last_len,
     const int* __restrict__ lf, const int* __restrict__ doct,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
-    int* __restrict__ count, int* __restrict__ fec_row) {
-  payload_body<true>(symbols, S, sel, hdr_ok, num_blocks, last_len, lf,
+    int* __restrict__ count, int* __restrict__ fec_row,
+    int* __restrict__ blocks_row) {
+  const int bp = blockIdx.x;
+  const long long src_row =
+      blocks_row != nullptr ? compact_row(hdr_ok, B, gridDim.x, bp,
+                                          blocks_row)
+                            : bp;
+  payload_body<true>(symbols, S, src_row, hdr_ok, num_blocks, last_len, lf,
                      doct, consts, tab, count, fec_row);
 }
 
@@ -507,8 +638,129 @@ __global__ void __launch_bounds__(kPayloadThreads) l2_deinterleave_kernel(
     const int* __restrict__ lf, const int* __restrict__ doct,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
     int* __restrict__ fec_row) {
-  payload_body<false>(symbols, S, sel, hdr_ok, num_blocks, last_len, lf,
-                      doct, consts, tab, nullptr, fec_row);
+  const int bp = blockIdx.x;
+  payload_body<false>(symbols, S, sel != nullptr ? sel[bp] : bp, hdr_ok,
+                      num_blocks, last_len, lf, doct, consts, tab, nullptr,
+                      fec_row);
+}
+
+// ------------------------------------------------------------ L2 front
+// One CTA a compacted row r < cap; see l2_front above.
+__global__ void __launch_bounds__(kFrontThreads) l2_front_kernel(
+    const float* __restrict__ phases, const float* __restrict__ pwr, int C,
+    int M, const int* __restrict__ count, const int* __restrict__ sync_idx,
+    const float* __restrict__ dphi, int K, int S, int compact,
+    const uint8_t* __restrict__ gray, const int* __restrict__ synd_table,
+    const int* __restrict__ synd_weight, const int* __restrict__ h_rows,
+    const uint8_t* __restrict__ prbs, long long* __restrict__ take,
+    int* __restrict__ inv, uint8_t* __restrict__ symbols,
+    int* __restrict__ hdr_out, uint8_t* __restrict__ flags,
+    float* __restrict__ frame_pwr) {
+  constexpr int kW = kFrontThreads / 32;
+  __shared__ float ph_s[kFrontWin];
+  __shared__ uint8_t sym9_s[kHeaderSyms];
+  __shared__ int warp_buf[kW];
+  __shared__ double sum_s[kW];
+  __shared__ int slot_s, bits_s, ok_s;
+  const int r = blockIdx.x;
+  const int cap = gridDim.x;
+  const int t = threadIdx.x;
+
+  // ---- 1. the slot at position r of the compaction ------------------
+  if (!compact) {
+    if (t == 0) slot_s = r;
+  } else {
+    int n = 0;
+    for (int c = t; c < C; c += kFrontThreads)
+      n += min(max(count[c], 0), K);
+    int nv;                                      // valid slots in all
+    block_excl_scan<kW>(n, warp_buf, &nv);
+    int v_before = 0;                            // valid slots before chunk
+    for (int c0 = 0; c0 < C; c0 += kFrontThreads) {
+      const int c = c0 + t;
+      const int vc = c < C ? min(max(count[c], 0), K) : 0;
+      int chunk;
+      const int pv = v_before + block_excl_scan<kW>(vc, warp_buf, &chunk);
+      if (c < C) {
+        const int pi = c * K - pv;               // invalid slots before c
+        if (r < nv ? (r >= pv && r < pv + vc)
+                   : (r - nv >= pi && r - nv < pi + K - vc))
+          slot_s = c * K + (r < nv ? r - pv : vc + (r - nv - pi));
+        if (c % cap == r) {                      // this CTA's inv entries
+          for (int k = 0; k < K; ++k) {
+            const int p = k < vc ? pv + k : nv + pi + (k - vc);
+            inv[c * K + k] = p < cap ? p : -1;
+          }
+        }
+      }
+      v_before += chunk;
+    }
+  }
+  __syncthreads();
+  const int slot = slot_s;
+  if (t == 0) take[r] = slot;
+
+  // ---- 2. the window at the symbol clock, zero past M ---------------
+  const int c = slot / K;
+  const long long start =
+      min(max(static_cast<long long>(sync_idx[slot]), 0ll),
+          static_cast<long long>(M));
+  const float dp0 = dphi[slot];
+  const float* ph_row = phases + static_cast<long long>(c) * M;
+  for (int j = t; j <= S; j += kFrontThreads) {
+    const long long idx = start + static_cast<long long>(kSps) * j;
+    ph_s[j] = idx < M ? ph_row[idx] : 0.0f;
+  }
+  __syncthreads();
+
+  // ---- 3. D8PSK decisions --------------------------------------------
+  uint8_t* sym_row = symbols + static_cast<long long>(r) * S;
+  for (int s = t; s < S; s += kFrontThreads) {
+    float d = (ph_s[s + 1] - ph_s[s]) - dp0;
+    if (d < 0.0f) d = d + kTwoPi;
+    if (d > kTwoPi) d = d - kTwoPi;
+    const long long q =
+        static_cast<long long>(rintf(__fdiv_rn(d, kQuarterPi)));
+    const int m = static_cast<int>(((q % kArity) + kArity) % kArity);
+    const uint8_t g = gray[m];
+    sym_row[s] = g;
+    if (s < kHeaderSyms) sym9_s[s] = g;
+  }
+  __syncthreads();
+
+  // ---- 4. the header -----------------------------------------------
+  if (t == 0) {
+    int bits;
+    ok_s = write_header(sym9_s, r, cap, synd_table, synd_weight, h_rows,
+                        prbs, hdr_out, flags, &bits);
+    bits_s = bits;
+  }
+  __syncthreads();
+
+  // ---- 5. frame power: mean over the burst's symbols ------------------
+  if (!ok_s) {
+    if (t == 0) frame_pwr[r] = 0.0f;
+    return;
+  }
+  const int total = max((bits_s + 2) / 3, 1);
+  const int n_sum = min(total, S);
+  const float* pw_row = pwr + static_cast<long long>(c) * M;
+  double acc = 0.0;
+  for (int s = t; s < n_sum; s += kFrontThreads) {
+    const long long idx = start + static_cast<long long>(kSps) * (s + 1);
+    acc += idx < M ? pw_row[idx] : 0.0f;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  if ((t & 31) == 0) sum_s[t >> 5] = acc;
+  __syncthreads();
+  if (t == 0) {
+    double sum = 0.0;
+    for (int w = 0; w < kW; ++w) sum += sum_s[w];
+    frame_pwr[r] = __fdiv_rn(static_cast<float>(sum),
+                             static_cast<float>(total));
+  }
 }
 
 // ------------------------------------------------------------------ RS
@@ -555,16 +807,17 @@ extern "C" int l2_header_launch(const uint8_t* symbols, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks_row (the compaction of B rows to Bp) may be null: then Bp == B.
 extern "C" int l2_payload_launch(
-    const uint8_t* symbols, int S, const long long* sel, int Bp,
+    const uint8_t* symbols, int S, int B, int Bp,
     const uint8_t* hdr_ok, const int* num_blocks, const int* last_len,
     const int* lf, const int* doct, const uint8_t* consts, uint8_t* tab,
-    int* count, int* fec_row, void* stream) {
+    int* count, int* fec_row, int* blocks_row, void* stream) {
   if (Bp <= 0) return 0;
   l2_payload_kernel<<<Bp, kPayloadThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
-      count, fec_row);
+      symbols, S, B, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
+      count, fec_row, blocks_row);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,6 +831,23 @@ extern "C" int l2_deinterleave_launch(
                            static_cast<cudaStream_t>(stream)>>>(
       symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
       fec_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// compact = 0: row r takes slot r (cap = C K, inv not written).
+extern "C" int l2_front_launch(
+    const float* phases, const float* pwr, int C, int M, const int* count,
+    const int* sync_idx, const float* dphi, int K, int S, int cap,
+    int compact, const uint8_t* gray, const int* synd_table,
+    const int* synd_weight, const int* h_rows, const uint8_t* prbs,
+    long long* take, int* inv, uint8_t* symbols, int* hdr_out,
+    uint8_t* flags, float* frame_pwr, void* stream) {
+  if (cap <= 0) return 0;
+  l2_front_kernel<<<cap, kFrontThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      phases, pwr, C, M, count, sync_idx, dphi, K, S, compact, gray,
+      synd_table, synd_weight, h_rows, prbs, take, inv, symbols, hdr_out,
+      flags, frame_pwr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,11 @@ candidate bursts,
     -> deinterleave (gather) -> batched RS(255,249).
 
 The JAX package compiles the chain into one executable; here it is
-two kernels (fec/l2_kernel.py: L2H header and geometry, L2P octet
-packing, deinterleave and RS decode) with the burst compaction between
-them and the frame power after them in plain PyTorch.
+two kernels (fec/l2_kernel.py): L2H, the header and geometry, and L2P,
+octet packing, deinterleave and RS decode, behind the hdr-ok
+compaction when the batch is capped.  (The sliced step,
+core/pipeline.l2_sliced, runs L2H's front kernel in place of the
+header and then :func:`decode_payload`.)
 HDLC unstuffing and CRC stay on the host (burst._result_from_batch).
 Every shape is static; rejected rows decode with fec_octets == 0 (a
 no-op in RS).
@@ -20,7 +22,22 @@ from __future__ import annotations
 
 import torch
 
-from .l2_kernel import l2_header, l2_payload
+from .l2_kernel import l2_header, l2_payload, l2_payload_capped
+
+
+def frame_power(power: torch.Tensor, hdr_ok: torch.Tensor,
+                bits_consumed: torch.Tensor) -> torch.Tensor:
+    """Mean per-symbol power over each burst's symbol count
+    (decode.c:268-269), 0 where the header is rejected.  ``power`` (B, S)
+    float32."""
+    S = power.shape[1]
+    total_syms = torch.clamp(-torch.div(-bits_consumed, 3,
+                                        rounding_mode="floor"), min=1)
+    sidx = torch.arange(S, dtype=torch.int32, device=power.device)
+    msk = sidx[None, :] < total_syms[:, None]
+    return torch.where(
+        hdr_ok, (power * msk).sum(dim=1) / total_syms.to(torch.float32),
+        0.0)
 
 
 def l2_decode_batch(symbols: torch.Tensor, max_symbols: int,
@@ -47,36 +64,32 @@ def l2_decode_batch(symbols: torch.Tensor, max_symbols: int,
     B, S = symbols.shape
     if S != max_symbols:
         raise ValueError(f"symbols have {S} columns, expected {max_symbols}")
-    dev = symbols.device
     symbols = symbols.contiguous()
     hdr = l2_header(symbols)
-    lf = hdr.pop("lf")
-    hdr_ok = hdr["hdr_ok"]
+    frame_pwr = None if power is None else frame_power(
+        power, hdr["hdr_ok"], hdr["bits_consumed"])
+    return decode_payload(symbols, hdr, frame_pwr, rs_burst_cap)
 
-    # ---- optional burst compaction before the payload stages ---------
-    sel = blocks_row = None
-    if rs_burst_cap is not None and rs_burst_cap < B:
-        order = torch.argsort((~hdr_ok).to(torch.int32), stable=True)
-        sel = order[:rs_burst_cap]
-        blocks_row = torch.full((B,), -1, dtype=torch.int32, device=dev)
-        blocks_row[sel] = torch.arange(rs_burst_cap, dtype=torch.int32,
-                                       device=dev)
-    blocks, counts, fec_row = l2_payload(symbols, sel, hdr_ok,
-                                         hdr["num_blocks"], hdr["last_len"],
-                                         lf, hdr["datalen_octets"])
+
+def decode_payload(symbols: torch.Tensor, hdr: dict,
+                    frame_pwr: torch.Tensor | None,
+                    rs_burst_cap: int | None) -> dict:
+    """L2P on L2H's results (``hdr``, its ``lf`` consumed), behind the
+    hdr-ok compaction when ``rs_burst_cap`` is below the batch; the
+    batch's result dict."""
+    lf = hdr.pop("lf")
+    geom = (hdr["hdr_ok"], hdr["num_blocks"], hdr["last_len"], lf,
+            hdr["datalen_octets"])
     extra = {}
-    if blocks_row is not None:
-        extra["blocks_row"] = blocks_row
-    if power is not None:
-        bits_consumed = hdr["bits_consumed"]
-        total_syms = torch.clamp(-torch.div(-bits_consumed, 3,
-                                            rounding_mode="floor"), min=1)
-        sidx = torch.arange(S, dtype=torch.int32, device=dev)
-        msk = sidx[None, :] < total_syms[:, None]
-        extra["frame_pwr"] = torch.where(
-            hdr_ok, (power * msk).sum(dim=1) / total_syms.to(torch.float32),
-            0.0)
+    if rs_burst_cap is not None and rs_burst_cap < symbols.shape[0]:
+        blocks, counts, fec_row, extra["blocks_row"] = l2_payload_capped(
+            symbols, rs_burst_cap, *geom)
+    else:
+        blocks, counts, fec_row = l2_payload(symbols, *geom)
+    if frame_pwr is not None:
+        extra["frame_pwr"] = frame_pwr
     return {
         **extra, **hdr,
         "blocks": blocks, "counts": counts, "fec_row": fec_row,
     }
+

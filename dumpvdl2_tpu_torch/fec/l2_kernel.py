@@ -1,37 +1,46 @@
-"""L2 kernels L2H, L2P, L2D and RS and their plain twins.
+"""L2 kernels (the front L2H, L2P, L2D and RS) and their plain twins.
 
-The JAX package compiles its whole L2 step (``fec/l2_tpu.py``,
-``fec/rs_tpu.py``) into one XLA executable.  Run eagerly, the same step
-in PyTorch issues ~2 400 small launches a block, most of them the
-Reed-Solomon decoder's 6-step recurrences and bit-serial field
-multiplies.  So the step is two hand-written CUDA kernels
-(``csrc/l2.cu``):
+The JAX package compiles its whole L2 step (``core/pipeline.py``'s
+``_l2_sliced_impl``, ``fec/l2_tpu.py``, ``fec/rs_tpu.py``) into one XLA
+executable.  Run eagerly, the same step in PyTorch issues ~2 400 small
+launches a block, most of them the Reed-Solomon decoder's 6-step
+recurrences and bit-serial field multiplies.  So the step is two
+hand-written CUDA kernels (``csrc/l2.cu``):
 
-* L2H ``l2_header``: symbols -> bits, PRBS descramble of the 25 header
-  bits, the (25,20) header FEC, the bit-reversed transmission length
-  and the RS geometry, a thread a burst;
+* L2H ``l2_front``: the sliced step's front -- the slot compaction
+  (valid slots first, capped at :func:`slot_cap` rows), each row's
+  window at the symbol clock from the block's phase and power planes,
+  the D8PSK decisions, the header (symbols -> bits, PRBS descramble of
+  the 25 header bits, the (25,20) header FEC, the bit-reversed
+  transmission length and the RS geometry) and the frame power, a
+  thread block a row.  ``l2_header`` is the header alone on pre-sliced
+  symbols, a thread a burst (the mesh, ``l2_decode_batch``);
 * L2P ``l2_payload``: octet packing, the deinterleave of each
   (compacted) burst's 9 x 255 RS table straight from its symbols, each
   row's parity count, and the RS(255,249) errors-and-erasures decode of
   every row (the absent parity of a shortened block as erasures), a
   thread block a burst and a warp a row, the table in shared memory
-  throughout.
+  throughout.  ``l2_payload_capped`` is L2P behind the hdr-ok
+  compaction: each block finds its row by a scan of ``hdr_ok``.
 
 Two more kernels are built on L2P's device functions and keep their
 stages' entry points: L2D ``l2_deinterleave`` (the table and parity
 counts, no decode) and RS ``rs_verify`` (the decode of given rows, a
 warp a row; ``fec/rs_batch.py::rs_verify_batch``).
 
-``fec/l2.py`` calls :func:`l2_header` and :func:`l2_payload`,
-``fec/rs_batch.py`` :func:`rs_verify`; :func:`l2_deinterleave` is
-L2D's.  On a CUDA tensor they launch the kernel or raise; on a CPU
-tensor they run the plain version (:func:`l2_header_plain`,
-:func:`l2_payload_plain`, :func:`l2_deinterleave_plain`,
-:func:`rs_verify_plain`).  Only the CUDA path counts in
-:data:`launches`.  The kernels read their constant tables (the GF(256)
-exp/log tables, the header syndrome table, its weights and parity rows,
-the PRBS and its octets) from this package's Python tables, uploaded
-once a device.
+``fec/l2.py`` calls :func:`l2_header`, :func:`l2_payload` and
+:func:`l2_payload_capped`, ``fec/rs_batch.py`` :func:`rs_verify`;
+:func:`l2_deinterleave` is L2D's.  On a CUDA tensor they launch the
+kernel or raise; on a CPU tensor they run the plain version
+(``*_plain``).  The front's wrapper and plain version, which compose
+the DSP stage's window slicing and decisions with L2H's header, are
+``core/pipeline.py``'s ``l2_front`` and ``l2_front_plain``;
+:func:`l2_front_cuda` launches its kernel.  Only the CUDA path counts
+in :data:`launches` (L2P behind its compaction counts as
+``l2_payload``).  The kernels read
+their constant tables (the GF(256) exp/log tables, the header syndrome
+table, its weights and parity rows, the PRBS and its octets, the Gray
+code) from this package's Python tables, uploaded once a device.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import functools
 import numpy as np
 import torch
 
-from ..constants import (HDRFECLEN, HEADER_LEN, MAX_FRAME_LENGTH,
+from ..constants import (GRAYCODE, HDRFECLEN, HEADER_LEN, MAX_FRAME_LENGTH,
                          MAX_FRAME_LENGTH_CORRECTED, RS_K, RS_N, TRLEN)
 from .gf256 import ALPHA_TO, INDEX_OF
 from .header import H_ROWS, SYND_WEIGHT, SYNDTABLE
@@ -58,14 +67,17 @@ MAX_TOTAL_OCT = MAX_DATA_OCT + (MAX_BLOCKS - 1) * (RS_N - RS_K) + 4  # 2100
 MIN_SYMBOLS = -(-(HEADER_LEN + 8 * MAX_TOTAL_OCT) // 3)  # 5609
 
 # Kernel launches since start (or the last reset by the caller).
-launches = {"l2_header": 0, "l2_payload": 0, "l2_deinterleave": 0,
-            "rs_verify": 0}
+launches = {"l2_front": 0, "l2_header": 0, "l2_payload": 0,
+            "l2_deinterleave": 0, "rs_verify": 0}
 
 # L2H's per-burst results, in the kernel's output order: int32, then bool
 HDR_INT = ("syndrome", "synd_weight", "datalen", "datalen_octets",
            "num_blocks", "last_len", "bits_consumed", "lf")
 HDR_BOOL = ("reserved_bad", "too_long", "no_fec", "hdr_ok")
 
+
+# The front's largest window (csrc/l2.cu kFrontWin): S + 1 samples.
+FRONT_WIN = 8192
 
 # The constant bytes of L2P, L2D and RS (csrc/l2.cu kExpOff, kLogOff,
 # kPrbsOff, kConstBytes): GF(256) exp over two periods, log, and the
@@ -98,6 +110,7 @@ def _tables(device: torch.device) -> dict[str, torch.Tensor]:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     return {"synd": t(SYNDTABLE), "weight": t(SYND_WEIGHT),
             "h_rows": t(H_ROWS), "prbs": t(PRBS, torch.uint8),
+            "gray": t(GRAYCODE, torch.uint8),
             "consts": t(const_bytes(), torch.uint8)}
 
 
@@ -325,9 +338,9 @@ def l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
     return tab.to(torch.uint8), fec_row
 
 
-def _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
+def _payload_geometry(symbols, hdr_ok, num_blocks, last_len, lf,
                       doct) -> int:
-    """Check L2P's and L2D's arguments on the card; returns Bp."""
+    """Check L2P's and L2D's burst arguments on the card; returns B."""
     dev = symbols.device
     _check_symbols(symbols)
     B = symbols.shape[0]
@@ -337,26 +350,30 @@ def _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
         _check(name, x, torch.int32, 1, dev)
     if any(x.shape[0] != B for x in (hdr_ok, *geom)):
         raise ValueError(f"per-burst arrays must have {B} rows")
-    if sel is not None:
-        _check("sel", sel, torch.int64, 1, dev)
-    return B if sel is None else sel.shape[0]
+    return B
 
 
-def _launch_payload(name: str, symbols, sel, hdr_ok, num_blocks, last_len,
-                    lf, doct, outs: tuple[torch.Tensor, ...]) -> None:
-    """Launch ``name`` (L2P or L2D) on the current stream: the burst
-    arguments, the constant bytes, then ``outs``."""
+# The row arguments of L2P (B, Bp) and L2D (its row index, Bp).
+_PAYLOAD_ROWS = {"l2_payload": [ctypes.c_int, ctypes.c_int],
+                 "l2_deinterleave": [ctypes.c_void_p, ctypes.c_int]}
+
+
+def _launch_payload(name: str, symbols, rows: tuple, geom: tuple,
+                    outs: tuple) -> None:
+    """Launch ``name`` (L2P or L2D) on the current stream: the symbols,
+    ``rows`` (L2P's B and Bp; L2D's row index and Bp), the burst
+    arguments ``geom`` (hdr_ok, num_blocks, last_len, lf, doct), the
+    constant bytes, then the outputs ``outs`` (None is a null pointer)."""
     fn = _launcher(f"{name}_launch",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int] + [ctypes.c_void_p] * (7 + len(outs)))
-    Bp = outs[-1].shape[0]
+                   [ctypes.c_void_p, ctypes.c_int] + _PAYLOAD_ROWS[name]
+                   + [ctypes.c_void_p] * (len(geom) + len(outs) + 2))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
     with torch.cuda.device(symbols.device):
-        rc = fn(symbols.data_ptr(), symbols.shape[1],
-                None if sel is None else sel.data_ptr(), Bp,
-                hdr_ok.data_ptr(),
-                *(x.data_ptr() for x in (num_blocks, last_len, lf, doct)),
-                _tables(symbols.device)["consts"].data_ptr(),
-                *(x.data_ptr() for x in outs), _stream(symbols))
+        rc = fn(symbols.data_ptr(), symbols.shape[1], *rows,
+                *map(ptr, geom), _tables(symbols.device)["consts"].data_ptr(),
+                *map(ptr, outs), _stream(symbols))
     _raise_on(rc, name)
     launches[name] += 1
 
@@ -368,12 +385,16 @@ def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
     dev = symbols.device
     if dev.type != "cuda":
         raise ValueError("l2_deinterleave_cuda needs CUDA tensors")
-    Bp = _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
-                           doct)
+    geom = (hdr_ok, num_blocks, last_len, lf, doct)
+    Bp = _payload_geometry(symbols, *geom)
+    if sel is not None:
+        _check("sel", sel, torch.int64, 1, dev)
+        Bp = sel.shape[0]
     tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
     fec_row = torch.empty((Bp, MAX_BLOCKS), dtype=torch.int32, device=dev)
-    _launch_payload("l2_deinterleave", symbols, sel, hdr_ok, num_blocks,
-                    last_len, lf, doct, (tab, fec_row))
+    _launch_payload("l2_deinterleave", symbols,
+                    (None if sel is None else sel.data_ptr(), Bp), geom,
+                    (tab, fec_row))
     return tab, fec_row
 
 
@@ -451,45 +472,187 @@ def rs_verify(blocks: torch.Tensor, fec_octets: torch.Tensor
 
 
 # ------------------------------------------------------------------ L2P
-def l2_payload_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+def l2_payload_plain(symbols, hdr_ok, num_blocks, last_len, lf, doct
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain L2P: :func:`l2_deinterleave_plain`, then
+    """Plain L2P: :func:`l2_deinterleave_plain` of every burst, then
     :func:`rs_verify_plain` on every row of the tables.  Arguments as
-    :func:`l2_deinterleave_plain`.  Returns ``(corrected (Bp, 9, 255)
-    uint8, counts (Bp, 9) int32, fec_row (Bp, 9) int32)``."""
-    tab, fec_row = l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks,
+    :func:`l2_deinterleave_plain` without ``sel``.  Returns
+    ``(corrected (B, 9, 255) uint8, counts (B, 9) int32, fec_row (B, 9)
+    int32)``."""
+    tab, fec_row = l2_deinterleave_plain(symbols, None, hdr_ok, num_blocks,
                                          last_len, lf, doct)
-    Bp = tab.shape[0]
-    corr, counts = rs_verify_plain(tab.reshape(Bp * MAX_BLOCKS, RS_N),
-                                   fec_row.reshape(Bp * MAX_BLOCKS))
-    return (corr.reshape(Bp, MAX_BLOCKS, RS_N),
-            counts.reshape(Bp, MAX_BLOCKS), fec_row)
+    B = tab.shape[0]
+    corr, counts = rs_verify_plain(tab.reshape(B * MAX_BLOCKS, RS_N),
+                                   fec_row.reshape(B * MAX_BLOCKS))
+    return (corr.reshape(B, MAX_BLOCKS, RS_N),
+            counts.reshape(B, MAX_BLOCKS), fec_row)
 
 
-def l2_payload_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+def l2_payload_cuda(symbols, hdr_ok, num_blocks, last_len, lf, doct
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch kernel L2P on the current stream (no fallback).  Arguments
-    and results as :func:`l2_payload_plain`; the counts and parity
-    counts share one allocation."""
+    """Launch kernel L2P on the current stream (no fallback), a CTA a
+    burst.  Arguments and results as :func:`l2_payload_plain`; the
+    counts and parity counts share one allocation."""
     dev = symbols.device
     if dev.type != "cuda":
         raise ValueError("l2_payload_cuda needs CUDA tensors")
-    Bp = _payload_geometry(symbols, sel, hdr_ok, num_blocks, last_len, lf,
-                           doct)
-    tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
-    counts, fec_row = torch.empty((2, Bp, MAX_BLOCKS), dtype=torch.int32,
+    geom = (hdr_ok, num_blocks, last_len, lf, doct)
+    B = _payload_geometry(symbols, *geom)
+    tab = torch.empty((B, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
+    counts, fec_row = torch.empty((2, B, MAX_BLOCKS), dtype=torch.int32,
                                   device=dev).unbind()
-    _launch_payload("l2_payload", symbols, sel, hdr_ok, num_blocks,
-                    last_len, lf, doct, (tab, counts, fec_row))
+    _launch_payload("l2_payload", symbols, (B, B), geom,
+                    (tab, counts, fec_row, None))
     return tab, counts, fec_row
 
 
-def l2_payload(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
+def l2_payload(symbols, hdr_ok, num_blocks, last_len, lf, doct
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """L2P on the tensors' device: the kernel on CUDA, plain on CPU.
     Arguments as :func:`l2_payload_plain`."""
     if _device_of(symbols) == "cuda":
-        return l2_payload_cuda(symbols, sel, hdr_ok, num_blocks, last_len,
-                               lf, doct)
-    return l2_payload_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
-                            doct)
+        return l2_payload_cuda(symbols, hdr_ok, num_blocks, last_len, lf,
+                               doct)
+    return l2_payload_plain(symbols, hdr_ok, num_blocks, last_len, lf, doct)
+
+
+def compact_rows(keep: torch.Tensor, cap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable compaction: the first ``cap`` indices with ``keep`` set
+    (then the others, in index order), and the inverse map index ->
+    compacted row (-1 = not taken)."""
+    order = torch.argsort((~keep).to(torch.int32), stable=True)
+    take = order[:cap]
+    inv = torch.full(keep.shape, -1, dtype=torch.int32, device=keep.device)
+    inv[take] = torch.arange(cap, dtype=torch.int32, device=keep.device)
+    return take, inv
+
+
+def l2_payload_capped_plain(symbols, cap: int, hdr_ok, num_blocks, last_len,
+                            lf, doct) -> tuple[torch.Tensor, ...]:
+    """Plain L2P behind the hdr-ok compaction: :func:`l2_payload_plain`
+    on the first ``cap`` rows of the stable order (accepted bursts
+    first).  Arguments as it takes them, after ``cap``.  Returns its
+    three results (``cap`` rows) and ``blocks_row`` (B,) int32: burst ->
+    compacted row, -1 past ``cap``."""
+    sel, blocks_row = compact_rows(hdr_ok, cap)
+    rows = (x[sel] for x in (symbols, hdr_ok, num_blocks, last_len, lf,
+                             doct))
+    return (*l2_payload_plain(*rows), blocks_row)
+
+
+def l2_payload_capped_cuda(symbols, cap: int, hdr_ok, num_blocks, last_len,
+                           lf, doct) -> tuple[torch.Tensor, ...]:
+    """Launch kernel L2P with its compaction prologue (no fallback):
+    each CTA finds its row by a block scan of ``hdr_ok`` and writes its
+    share of ``blocks_row``.  Arguments and results as
+    :func:`l2_payload_capped_plain`."""
+    dev = symbols.device
+    if dev.type != "cuda":
+        raise ValueError("l2_payload_capped_cuda needs CUDA tensors")
+    geom = (hdr_ok, num_blocks, last_len, lf, doct)
+    B = _payload_geometry(symbols, *geom)
+    if not 0 < cap <= B:
+        raise ValueError(f"cap {cap} outside 1..{B}")
+    tab = torch.empty((cap, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
+    ints = torch.empty(2 * cap * MAX_BLOCKS + B, dtype=torch.int32,
+                       device=dev)
+    counts, fec_row = ints[:2 * cap * MAX_BLOCKS].view(
+        2, cap, MAX_BLOCKS).unbind()
+    blocks_row = ints[2 * cap * MAX_BLOCKS:]
+    _launch_payload("l2_payload", symbols, (B, cap), geom,
+                    (tab, counts, fec_row, blocks_row))
+    return tab, counts, fec_row, blocks_row
+
+
+def l2_payload_capped(symbols, cap: int, hdr_ok, num_blocks, last_len, lf,
+                      doct) -> tuple[torch.Tensor, ...]:
+    """L2P behind the hdr-ok compaction on the tensors' device: the
+    kernel on CUDA, plain on CPU.  See :func:`l2_payload_capped_plain`."""
+    if _device_of(symbols) == "cuda":
+        return l2_payload_capped_cuda(symbols, cap, hdr_ok, num_blocks,
+                                      last_len, lf, doct)
+    return l2_payload_capped_plain(symbols, cap, hdr_ok, num_blocks,
+                                   last_len, lf, doct)
+
+
+# ------------------------------------------------------- L2H: the front
+def slot_cap(C: int, K: int) -> int:
+    """Rows of the L2 batch for a (C, K) slot grid: max(256, 4 C), at
+    most every slot."""
+    return min(C * K, max(256, 4 * C))
+
+
+def _check_front(phases, pwr, count, sync_idx, dphi, K: int, S: int
+                 ) -> None:
+    dev = phases.device
+    C = count.shape[0]
+    _check("phases", phases, torch.float32, 2, dev)
+    _check("pwr", pwr, torch.float32, 2, dev)
+    _check("count", count, torch.int32, 1, dev)
+    _check("sync_idx", sync_idx, torch.int32, 2, dev)
+    _check("dphi", dphi, torch.float32, 2, dev)
+    M = phases.shape[1]
+    if phases.shape != (C, M) or pwr.shape != (C, M) \
+            or sync_idx.shape != (C, K) or dphi.shape != (C, K):
+        raise ValueError(f"front arguments disagree: phases "
+                         f"{tuple(phases.shape)}, pwr {tuple(pwr.shape)}, "
+                         f"count {C}, sync_idx {tuple(sync_idx.shape)}, "
+                         f"dphi {tuple(dphi.shape)}, K={K}")
+    if not MIN_SYMBOLS <= S <= min(PRBS.size // 3, FRONT_WIN - 1):
+        raise ValueError(f"S={S} outside {MIN_SYMBOLS}.."
+                         f"{min(PRBS.size // 3, FRONT_WIN - 1)}")
+    if not 0 < M < 2 ** 31 or C * K >= 2 ** 31:     # C ints in the kernel
+        raise ValueError(f"unsupported shape ({C}, {M}) with K={K}")
+
+
+def l2_front_cuda(phases: torch.Tensor, pwr: torch.Tensor,
+                  count: torch.Tensor, sync_idx: torch.Tensor,
+                  dphi: torch.Tensor, K: int, S: int) -> dict:
+    """Launch kernel L2H's front on the current stream (no fallback): a
+    CTA a compacted row.  Arguments and results as
+    ``core/pipeline.py``'s ``l2_front_plain``."""
+    dev = phases.device
+    if dev.type != "cuda":
+        raise ValueError("l2_front_cuda needs CUDA tensors")
+    _check_front(phases, pwr, count, sync_idx, dphi, K, S)
+    C, M = phases.shape
+    total = C * K
+    cap = slot_cap(C, K)
+    compact = cap < total
+    tb = _tables(dev)
+    take = torch.empty(cap, dtype=torch.int64, device=dev)
+    inv = torch.empty(total, dtype=torch.int32, device=dev) \
+        if compact else None
+    symbols = torch.empty((cap, S), dtype=torch.uint8, device=dev)
+    # one allocation: the header's int32 results, frame_pwr, the flags
+    n_int = len(HDR_INT) * cap
+    out = torch.empty(n_int + cap + (len(HDR_BOOL) * cap + 3) // 4,
+                      dtype=torch.int32, device=dev)
+    ints = out[:n_int].split(cap) if cap else [out[:0]] * len(HDR_INT)
+    frame_pwr = out[n_int:n_int + cap].view(torch.float32)
+    flag_bytes = out[n_int + cap:].view(torch.uint8)
+    bools = [flag_bytes[i * cap:(i + 1) * cap].view(torch.bool)
+             for i in range(len(HDR_BOOL))]
+    if cap:
+        fn = _launcher("l2_front_launch",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 12)
+        with torch.cuda.device(dev):
+            rc = fn(phases.data_ptr(), pwr.data_ptr(), C, M,
+                    count.data_ptr(), sync_idx.data_ptr(), dphi.data_ptr(),
+                    K, S, cap, int(compact), tb["gray"].data_ptr(),
+                    tb["synd"].data_ptr(), tb["weight"].data_ptr(),
+                    tb["h_rows"].data_ptr(), tb["prbs"].data_ptr(),
+                    take.data_ptr(), None if inv is None else inv.data_ptr(),
+                    symbols.data_ptr(), out.data_ptr(),
+                    flag_bytes.data_ptr(), frame_pwr.data_ptr(),
+                    _stream(phases))
+        _raise_on(rc, "l2_front")
+        launches["l2_front"] += 1
+    return {"take": take, "inv": inv, "symbols": symbols,
+            **dict(zip(HDR_INT, ints)), **dict(zip(HDR_BOOL, bools)),
+            "frame_pwr": frame_pwr}
+

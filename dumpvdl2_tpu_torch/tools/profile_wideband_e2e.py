@@ -36,10 +36,12 @@ and again.  Two scenes:
   unsynchronized block gives its wall.
 
 For each scene one more block runs under torch.profiler (and, for
-``single``, the feed_planar block above); its trace is
+``single``, the feed_planar block above and a staged block whose
+detect, L2 and gate steps each synchronize before and after, so that
+each step's kernel launches can be counted); its trace is
 reduced to the block's wall ms, the union of the device's kernel, copy
 and set intervals, the device idle share 1 - union / wall, the kernel
-launches, the 10 device ops with the most time, the host ms and the
+launches (in all and by stage annotation), the 10 device ops with the most time, the host ms and the
 device's idle ms inside each stage annotation, and the 5 longest idle
 gaps with the stage and host op running in each.  The profiler slows
 the host, so the traced block's wall stands beside an untraced one's.
@@ -226,8 +228,10 @@ def summarize_trace(events: list, device_trace: bool) -> dict:
     the top 10 device ops by total time, the device's idle ms inside
     each stage annotation (nested ones count in each), and the 5
     longest idle gaps (the stage annotation and innermost host op
-    spanning each gap's middle).  Without a device trace those fields
-    are None.  ``stage_ms`` is the host wall of each stage annotation
+    spanning each gap's middle), and the kernels whose middle lies in
+    each stage annotation (the stage's own launches where its
+    annotations synchronize the device before and after).  Without a
+    device trace those fields are None.  ``stage_ms`` is the host wall of each stage annotation
     inside the block, summed over its calls."""
     xs = [e for e in events if isinstance(e, dict) and e.get("ph") == "X"
           and "dur" in e]
@@ -243,6 +247,7 @@ def summarize_trace(events: list, device_trace: bool) -> dict:
     out = {"wall_ms": block["dur"] / 1e3, "stage_ms": stage_ms,
            "device_busy_ms": None,
            "idle_share": None, "kernel_launches": None, "copies": None,
+           "kernels_by_stage": None,
            "top_ops": None, "idle_ms_by_stage": None, "idle_gaps": None}
     if not device_trace:
         return out
@@ -266,9 +271,16 @@ def summarize_trace(events: list, device_trace: bool) -> dict:
     for e in dev:
         tot, n = ops.get(e["name"], (0.0, 0))
         ops[e["name"]] = (tot + e["dur"], n + 1)
+    kernels_by_stage: dict = {}
+    for e in stages:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        kernels_by_stage[e["name"]] = kernels_by_stage.get(
+            e["name"], 0) + sum(a <= k["ts"] + k["dur"] / 2 <= b
+                                for k in dev if k["cat"] == "kernel")
     out.update(
         device_busy_ms=busy / 1e3, idle_share=1.0 - busy / block["dur"],
         kernel_launches=sum(e["cat"] == "kernel" for e in dev),
+        kernels_by_stage=kernels_by_stage,
         copies=sum(e["cat"] != "kernel" for e in dev),
         top_ops=[{"name": k, "ms": v[0] / 1e3, "count": v[1]}
                  for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])
@@ -302,9 +314,9 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
         raise RuntimeError("the staged profile needs device L2 and device "
                            "gating (DUMPVDL2_TPU_L2 / DUMPVDL2_TPU_GATE)")
     frames = []
-    # one warm-up block more than feed_planar's run below, whose traced
-    # block follows a lead-in block
-    for _ in range(WARM_BLOCKS + 1):
+    # as many blocks in all as feed_planar's run below: the two traced
+    # staged blocks stand for its lead-in and traced blocks
+    for _ in range(WARM_BLOCKS):
         frames += pipe.feed_planar(planar)
     frames += pipe._drain_pending()
     stats = []
@@ -315,6 +327,15 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
     timers = _single_timers(pipe, feed=False)
     try:
         (st, fr), trace = traced(synced_block(
+            lambda: staged_block(pipe, planar), [device]), [device])
+    finally:
+        timers.restore()
+    frames += fr
+    # a staged block whose detect, L2 and gate steps each wait for the
+    # device before and after: each step's kernels lie in its annotation
+    timers = _single_timers(pipe, feed=False, sync=True)
+    try:
+        (_, fr), stage_trace = traced(synced_block(
             lambda: staged_block(pipe, planar), [device]), [device])
     finally:
         timers.restore()
@@ -355,6 +376,7 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
         raise AssertionError(f"staged frames' ppm, power or noise floor "
                              f"differ from feed_planar's by {d_float}")
     return {"blocks": stats, "traced_block": st, "trace": trace,
+            "synced_stage_trace": stage_trace,
             "feed_planar_block_ms": feed_ms,
             "feed_planar_trace": feed_trace,
             "frames": len(frames), "frames_equal_feed_planar": True,
@@ -384,7 +406,7 @@ class _Timers:
             t0 = time.perf_counter()
             with record_function(key):
                 out = orig(*a, **kw)
-            self._wait()
+                self._wait()        # the step's device work inside it
             self.ms.setdefault(key, []).append(
                 (time.perf_counter() - t0) * 1e3)
             return out
@@ -402,12 +424,14 @@ class _Timers:
         self._undo = []
 
 
-def _single_timers(pipe: VDL2Pipeline, feed: bool) -> _Timers:
-    """Annotate the single-device pipeline's steps for the profiler, no
-    sync: detection, L2 and the gate; with ``feed`` also feed_planar's
+def _single_timers(pipe: VDL2Pipeline, feed: bool,
+                   sync: bool = False) -> _Timers:
+    """Annotate the single-device pipeline's steps for the profiler
+    (with ``sync`` each waits for the device before and after):
+    detection, L2 and the gate; with ``feed`` also feed_planar's
     dispatch, fetch (on the fetch thread), drain, host and frame-building
     steps."""
-    t = _Timers([pipe.device], sync=False)
+    t = _Timers([pipe.device], sync=sync)
     t.wrap(pipeline, "process_block_detect", "detect")
     t.wrap(pipeline, "l2_sliced", "l2")
     t.wrap(pipe, "_dispatch_gate", "gate")
@@ -555,6 +579,9 @@ def summary(recs: list[dict]) -> list[str]:
             staged = "staged " if r["scene"] == "single" else ""
             lines += _trace_lines(f"{r['scene']} {staged}traced block",
                                   r["trace"])
+            if "synced_stage_trace" in r:
+                lines += _trace_lines(f"{r['scene']} staged block, steps "
+                                      f"synchronized", r["synced_stage_trace"])
             if "feed_planar_trace" in r:
                 lines += _trace_lines(f"{r['scene']} feed_planar traced "
                                       f"block", r["feed_planar_trace"])
@@ -566,6 +593,9 @@ def _trace_lines(label: str, t: dict) -> list[str]:
              f"{_fmt(t['device_busy_ms'])} ms, idle share "
              f"{_fmt(t['idle_share'])}, kernels {t['kernel_launches']}, "
              f"copies {t['copies']}"]
+    if t["kernels_by_stage"]:
+        lines.append("  kernels by stage: " + ", ".join(
+            f"{k} {v}" for k, v in t["kernels_by_stage"].items()))
     lines.append("  host ms by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in t["stage_ms"].items()))
     if t["idle_ms_by_stage"]:

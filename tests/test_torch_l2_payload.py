@@ -2,8 +2,10 @@
 fused payload stage of the L2 step -- octet packing, deinterleave and
 RS(255,249) decode of each burst's table in one kernel.
 
-* ``l2_payload_plain`` against the JAX ``l2_decode_batch``'s ``blocks``,
-  ``counts`` and ``fec_row``, exactly, with and without the burst cap,
+* ``l2_payload_plain`` (with the burst cap ``l2_payload_capped_plain``,
+  L2P behind the hdr-ok compaction) against the JAX
+  ``l2_decode_batch``'s ``blocks``, ``counts``, ``fec_row`` and
+  ``blocks_row``, exactly, with and without the burst cap,
   on ``sim.l2_fuzz`` bursts and on ``sim.l2_rs_fuzz`` bursts, whose RS
   rows carry the cases of ``sim.RS_FUZZ_CASES`` through the
   deinterleave (every count from -1 to 5).  A header's geometry gives a
@@ -52,14 +54,22 @@ def fuzz_sets():
 
 
 def _args(syms, cap: int | None, device=None) -> tuple:
-    """L2P's arguments as l2_decode_batch forms them (L2H's plain
-    results, the stable compaction for ``cap``)."""
+    """L2P's arguments as l2_decode_batch forms them: the symbols, the
+    burst cap (None: every burst) and L2H's plain results."""
     sym = torch.as_tensor(syms, device=device)
     hdr = l2_kernel.l2_header_plain(sym)
-    sel = None if cap is None else torch.argsort(
-        (~hdr["hdr_ok"]).to(torch.int32), stable=True)[:cap]
-    return (sym, sel, hdr["hdr_ok"], hdr["num_blocks"], hdr["last_len"],
+    return (sym, cap, hdr["hdr_ok"], hdr["num_blocks"], hdr["last_len"],
             hdr["lf"], hdr["datalen_octets"])
+
+
+def _payload_plain(args: tuple) -> tuple:
+    """The plain L2P on ``_args``: ``l2_payload_plain`` on every burst,
+    or behind the hdr-ok compaction ``l2_payload_capped_plain`` (its
+    fourth result ``blocks_row``)."""
+    sym, cap, *geom = args
+    if cap is None:
+        return l2_kernel.l2_payload_plain(sym, *geom)
+    return l2_kernel.l2_payload_capped_plain(*args)
 
 
 @pytest.mark.parametrize("cap", [None, 9])
@@ -67,10 +77,12 @@ def _args(syms, cap: int | None, device=None) -> tuple:
 def test_l2_payload_plain_matches_jax(fuzz_sets, fuzz, cap):
     from dumpvdl2_tpu.fec.l2_tpu import l2_decode_batch as j_l2
     rows = fuzz_sets[fuzz]
-    blocks, counts, fec_row = l2_kernel.l2_payload_plain(*_args(rows, cap))
+    got_all = _payload_plain(_args(rows, cap))
     want = j_l2(rows, S, rs_burst_cap=cap)
-    for key, got in (("blocks", blocks), ("counts", counts),
-                     ("fec_row", fec_row)):
+    keys = ("blocks", "counts", "fec_row", "blocks_row")
+    assert len(got_all) == (3 if cap is None else 4)
+    assert ("blocks_row" in want) == (cap is not None)
+    for key, got in zip(keys, got_all):
         w = np.asarray(want[key])
         np.testing.assert_array_equal(got.numpy(), w, err_msg=key)
         assert got.numpy().dtype == w.dtype, key
@@ -80,8 +92,7 @@ def test_l2_rs_fuzz_reaches_every_count(fuzz_sets):
     """Through the deinterleave of real headers: failures, zero
     syndromes, skipped rows and corrections of 1 to 5 positions, on rows
     of 6, 4, 2 and 0 parity octets."""
-    _, counts, fec_row = l2_kernel.l2_payload_plain(
-        *_args(fuzz_sets["l2_rs_fuzz"], None))
+    _, counts, fec_row = _payload_plain(_args(fuzz_sets["l2_rs_fuzz"], None))
     parity = fec_row != 0
     assert set(counts[parity].tolist()) >= {-1, 0, 1, 2, 3, 4, 5}
     assert set(fec_row.unique().tolist()) == {0, 2, 4, 6}
@@ -97,8 +108,9 @@ def test_l2_payload_plain_odd_parity_counts(fuzz_sets):
     rng = np.random.default_rng(43)
     args[5] = torch.as_tensor(rng.choice(
         np.array([1, 3, 5, 7, -1], np.int32), size=args[0].shape[0]))
-    blocks, counts, fec_row = l2_kernel.l2_payload_plain(*args)
-    tab, fec_plain = l2_kernel.l2_deinterleave_plain(*args)
+    blocks, counts, fec_row = _payload_plain(args)
+    tab, fec_plain = l2_kernel.l2_deinterleave_plain(args[0], None,
+                                                     *args[2:])
     assert torch.equal(fec_row, fec_plain)
     want_cw, want_cnt = j_verify(tab.reshape(-1, 255).numpy(),
                                  fec_row.reshape(-1).numpy())
@@ -218,23 +230,25 @@ def test_kernel_packing_model_matches_plain(fuzz_sets, fuzz):
 def test_l2_payload_on_cpu_runs_plain(fuzz_sets, monkeypatch):
     rows = fuzz_sets["l2_rs_fuzz"]
     calls = []
-    for mod, name in ((l2_step, "l2_header"), (l2_step, "l2_payload"),
+    for mod, name in ((l2_step, "l2_header"),
+                      (l2_step, "l2_payload_capped"),
                       (l2_kernel, "l2_payload_plain")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn:
                             calls.append(_n) or _f(*a))
     before = dict(l2_kernel.launches)
     out = l2_decode_batch(torch.as_tensor(rows), S, rs_burst_cap=9)
-    assert calls == ["l2_header", "l2_payload", "l2_payload_plain"]
+    assert calls == ["l2_header", "l2_payload_capped", "l2_payload_plain"]
     assert l2_kernel.launches == before
-    want = l2_kernel.l2_payload_plain(*_args(rows, 9))
-    for key, w in zip(("blocks", "counts", "fec_row"), want):
+    want = _payload_plain(_args(rows, 9))
+    for key, w in zip(("blocks", "counts", "fec_row", "blocks_row"), want):
         assert torch.equal(out[key], w), key
 
 
 def test_l2_payload_cuda_refuses_cpu_tensors(fuzz_sets):
+    sym, _, *geom = _args(fuzz_sets["l2_fuzz"][:2], None)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        l2_kernel.l2_payload_cuda(*_args(fuzz_sets["l2_fuzz"][:2], None))
+        l2_kernel.l2_payload_cuda(sym, *geom)
 
 
 # ------------------------------------------------------------ on the card
@@ -294,10 +308,12 @@ def test_l2_payload_kernel_any_geometry(cuda, fuzz_sets):
 
 @pytest.mark.cuda
 def test_l2_payload_rejects_bad_input(cuda, fuzz_sets):
-    args = list(_args(fuzz_sets["l2_fuzz"][:4], None, cuda))
+    sym, _, hdr_ok, nb, last_len, *rest = _args(fuzz_sets["l2_fuzz"][:4],
+                                                None, cuda)
     with pytest.raises(ValueError):
-        l2_kernel.l2_payload_cuda(args[0][:, :100].contiguous(), *args[1:])
+        l2_kernel.l2_payload_cuda(sym[:, :100].contiguous(), hdr_ok, nb,
+                                  last_len, *rest)
     with pytest.raises(ValueError):
-        l2_kernel.l2_payload_cuda(*args[:4], args[4].long(), *args[5:])
+        l2_kernel.l2_payload_cuda(sym, hdr_ok, nb, last_len.long(), *rest)
     with pytest.raises(ValueError):
-        l2_kernel.l2_payload_cuda(args[0], args[1], args[2][:3], *args[3:])
+        l2_kernel.l2_payload_cuda(sym, hdr_ok[:3], nb, last_len, *rest)
