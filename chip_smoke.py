@@ -168,8 +168,7 @@ from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
                                     wideband_scene)
 
 # The mesh and the L2 kernels' modules are imported where they are
-# used, so that the single-device helpers here also drive a checkout of
-# the port from before them (dumpvdl2_tpu_torch/tools/e2e_turns.py).
+# used.
 
 CENTER = 136.975e6
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate

@@ -12,7 +12,8 @@ What differs:
   default) or ``cpu``.  Without a GPU the CLI exits 1 with a "no CUDA
   device" message unless it is given ``--platform cpu``.
 * ``--profile DIR`` writes a ``torch.profiler`` trace (Chrome trace
-  format) to ``DIR/trace.json``.
+  format) of every thread to ``DIR/trace.json``, with the pipeline's
+  ``vdl2.*`` spans (core/spans.py) on its main and fetch threads.
 * ``--mesh CxT`` with ``--platform cpu`` lays the C*T shards on the CPU;
   on CUDA it needs C*T visible GPUs, or exits 1 with the mesh's message.
 """
@@ -313,7 +314,9 @@ def _start_profiler(device):
     acts = [tp.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(tp.ProfilerActivity.CUDA)
-    prof = tp.profile(activities=acts)
+    # every thread: the pipeline's fetch thread records spans too
+    every_thread = tp._ExperimentalConfig(profile_all_threads=True)
+    prof = tp.profile(activities=acts, experimental_config=every_thread)
     prof.start()
     return prof
 

@@ -103,6 +103,10 @@ def _worker_main(worker_id: int, inq, outq, fmtr_specs, config_fields,
             outq.put(("stopped", worker_id))
             return
         results = []
+        # this batch's processing times: the parent's sink adds them to
+        # its count and sum and pushes each to StatsD, as in-process
+        # decode does
+        times = []
         for seq, metadata, frame in msg[1]:
             # worker-decoded metadata shipped back to the parent so
             # output.push sees the same metadata as in-process decode
@@ -137,15 +141,14 @@ def _worker_main(worker_id: int, inq, outq, fmtr_specs, config_fields,
                         msgs[i] = fd.format_decoded_msg(metadata, root)
                     else:
                         msgs[i] = fd.format_raw_msg(metadata, frame)
-                stats.timing("decoder.msg.processing_time",
-                             (time.monotonic() - t0) * 1000.0)
+                times.append((time.monotonic() - t0) * 1000.0)
             except Exception:
                 traceback.print_exc(file=sys.stderr)
             results.append((seq, msgs, shipped_meta))
         counters = dict(stats.counters)
-        timings = {k: list(v) for k, v in stats.timings.items()}
         stats.reset()
-        outq.put(("results", results, counters, timings))
+        outq.put(("results", results, counters,
+                  {"decoder.msg.processing_time": times}))
 
 
 # --------------------------------------------------------------- parent side

@@ -3,6 +3,8 @@
 The reference pushes ~40 counter families to an Etsy StatsD daemon
 (statsd.c).  Here a process-global sink collects the same counters;
 ``enable_statsd`` attaches a UDP push client (io/statsd_client.py).
+A timer keeps its count and sum in the process; each sample goes to the
+client as it comes.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ class StatsSink:
     def __init__(self) -> None:
         self.counters: dict[str, int] = defaultdict(int)
         self.gauges: dict[str, float] = {}
-        self.timings: dict[str, list[float]] = defaultdict(list)
+        # timer -> [count, sum of ms]
+        self.timings: dict[str, list] = defaultdict(lambda: [0, 0.0])
         self._client = None   # optional statsd pusher
         # (freq, counter) -> prebuilt key: the f-string build was
         # measurable in bulk replay (a few per frame)
@@ -44,7 +47,9 @@ class StatsSink:
             self._client.gauge(gauge, value)
 
     def timing(self, timer: str, ms: float) -> None:
-        self.timings[timer].append(ms)
+        t = self.timings[timer]
+        t[0] += 1
+        t[1] += ms
         if self._client is not None:
             self._client.timing(timer, ms)
 

@@ -59,6 +59,7 @@ from .device import detect_planes, process_block, process_block_detect
 from .gate_scan import (V_DEFER_DATA, V_EMPTY, V_EOF_TRUNC, V_HDR_REJECT,
                         V_L2_OVERFLOW, V_PPM_REJECT, V_SKIP, V_UNPROCESSED)
 from .metadata import DecodedFrame, MsgMetadata
+from .spans import SpanLog
 
 # Longest possible burst in decimated samples (header + max payload):
 # 16825 bits -> 5609 symbols.
@@ -240,10 +241,13 @@ class VDL2Pipeline:
     device or host burst decoding (see :func:`resolve_device_l2`),
     ``device_gate`` the gating mode (see :func:`resolve_device_gate`);
     host L2 implies host gating, as in the JAX package.
-    ``step_ms``, when set to a dict, makes each block synchronize after
-    its detect, L2 and (device-gated) gate steps and accumulate their
-    wall milliseconds (plus the host's fetch-and-decode time) there: a
-    breakdown for measurement, at the cost of the overlap.
+    ``span_log`` (core/spans.py) records each block's host spans, its
+    device time by step and its frames.  ``step_ms``, when set to a
+    dict, makes each block synchronize after its detect, L2 and
+    (device-gated) gate steps and after draining, and adds those spans'
+    milliseconds there under ``detect``, ``l2``, ``gate`` and
+    ``fetch_host`` (the fetch and the host's decode): a breakdown for
+    measurement, at the cost of the overlap.
     """
 
     def __init__(self, freqs: list[int], centerfreq: int, sample_rate: int,
@@ -296,6 +300,7 @@ class VDL2Pipeline:
         self._nf_mags = None
         self.last_deferred_min: int | None = None
         self.step_ms: dict | None = None
+        self.span_log = SpanLog(self.device)
 
     # ----------------------------------------------------------- noise floor
     # The reference updates its magnitude EMA + noise floor only in
@@ -658,87 +663,104 @@ class VDL2Pipeline:
         return out
 
     # ------------------------------------------------------------------ feed
-    def _sync_time(self, key: str, t0: float) -> float:
-        """With step_ms set: wait for the device, add the step's wall
-        milliseconds since ``t0`` under ``key``; returns the new t0."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.step_ms[key] = self.step_ms.get(key, 0.0) + (t1 - t0) * 1e3
-        return t1
-
     def feed(self, iq: np.ndarray, eof: bool = False) -> list[DecodedFrame]:
         """Process one wideband complex64 block; returns decoded frames.
 
         ``iq`` is the dequantized complex baseband at the ingest rate.
         Length need not be aligned; a residual is carried internally.
         """
+        log = self.span_log
+        blk = log.new_block(self.step_ms is not None)
+        log.open(blk, "feed")
+        log.open(blk, "feed.h2d")
         iq = np.ascontiguousarray(iq, dtype=np.complex64)
         if self._residual.size:
             iq = np.concatenate([self._residual, iq])
         usable = (iq.size // self.oversample) * self.oversample
         self._residual = iq[usable:]
         planar = torch.as_tensor(to_planar(iq[:usable]), device=self.device)
-        return self.feed_planar(planar, eof=eof)
+        log.close(blk, "feed.h2d")
+        frames = self._feed_planar(planar, eof, blk)
+        log.close(blk, "feed")
+        return frames
 
     def feed_planar(self, iq, eof: bool = False) -> list[DecodedFrame]:
         """feed() for planar (2, N) float32 blocks, N a multiple of the
         oversample factor.  ``iq`` may be a tensor already on the
         pipeline's device (no host->device copy) or a numpy array."""
+        return self._feed_planar(iq, eof, None)
+
+    def _feed_planar(self, iq, eof: bool, blk) -> list[DecodedFrame]:
+        """feed_planar() in the record ``blk`` of its feed() call, or in
+        a new one."""
         iq = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
         if iq.shape[1] % self.oversample:
             raise ValueError(f"block length {iq.shape[1]} is not a multiple "
                              f"of the oversample factor {self.oversample}")
         if iq.shape[1] == 0:
             return self.finish() if eof else []
-
+        log = self.span_log
+        if blk is None:
+            blk = log.new_block(self.step_ms is not None)
+        log.open(blk, "feed_planar")
         # The queue holds no device tensors: the fetch future owns the
         # only references, so each block's buffers (with host L2 the
         # (C, K, S) symbols and powers, ~0.46 GB a wideband block) are
         # freed as soon as its transfer completes.  The fetch thread
-        # issues its copies on the same (default) stream, after this
+        # puts its copies on the same (default) stream, after this
         # block's work.
+        log.open(blk, "dispatch")
         tree, base, nf_base = self._dispatch_block(iq)
-        t0 = time.perf_counter() if self.step_ms is not None else 0.0
-        fut = self._submit_fetch(tree)
+        log.close(blk, "dispatch")
+        t_fetch = time.perf_counter_ns()
+        fut = self._submit_fetch(tree, blk)
         del tree
-        self._pending_q.append((self.use_device_gate, fut, base, nf_base))
+        self._pending_q.append((self.use_device_gate, fut, base, nf_base,
+                                blk))
         frames = []
         while len(self._pending_q) > 2 \
                 or (self._pending_q and self._pending_q[0][1].done()):
             frames.extend(self._drain_oldest())
         if self.step_ms is not None:
             frames.extend(self._drain_pending())
-            self._sync_time("fetch_host", t0)
+            log.add(blk, "fetch_host", t_fetch)
+            for key in ("detect", "l2", "gate", "fetch_host"):
+                ms = blk.ms(key)
+                if ms is not None:
+                    self.step_ms[key] = self.step_ms.get(key, 0.0) + ms
         if eof:
             frames.extend(self.finish())
+        log.close(blk, "feed_planar")
         return frames
 
     def _dispatch_block(self, iq: torch.Tensor):
         """Enqueue one block's device work (detection, L2 and, gated,
-        the gate) and advance the carried stream state; no wait but
-        under ``step_ms``.  Returns the tree to fetch for the drain, the
-        block's base and its noise-floor base."""
-        t0 = time.perf_counter() if self.step_ms is not None else 0.0
+        the gate) and advance the carried stream state, each step a span
+        of the current call's record; no wait but under ``step_ms``.
+        Returns the tree to fetch for the drain, the block's base and
+        its noise-floor base."""
+        log = self.span_log
+        blk = log.current
         H = self.hist.shape[2]
         if not self.use_device_l2:
             # host L2: every candidate's window is sliced on the device
             # and decoded on the host
+            log.open(blk, "detect")
             dets, new_hist, new_carry, pwr3 = process_block(
                 iq, self.taps, self.dphi, self.n0 & 0xFFFFFF, self.carry,
                 self.hist, self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
                 self.max_candidates, MAX_BURST_SYMS)
+            log.close(blk, "detect")
             l2 = l2_map = None
-            if self.step_ms is not None:
-                t0 = self._sync_time("detect", t0)
         else:
+            log.open(blk, "detect")
             dets, phases, pwr, new_hist, new_carry, pwr3 = \
                 process_block_detect(
                     iq, self.taps, self.dphi, self.n0 & 0xFFFFFF,
                     self.carry, self.hist, self.oversample, DEFAULT_HALO,
                     SYNC_THRESHOLD, self.max_candidates, MAX_BURST_SYMS)
-            if self.step_ms is not None:
-                t0 = self._sync_time("detect", t0)
+            log.close(blk, "detect")
+            log.open(blk, "l2")
             l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
                                    dets.dphi, self.max_candidates,
                                    MAX_BURST_SYMS)
@@ -746,8 +768,7 @@ class VDL2Pipeline:
                 l2_map = l2_map.reshape(len(self.channels),
                                         self.max_candidates)
             del phases, pwr
-            if self.step_ms is not None:
-                t0 = self._sync_time("l2", t0)
+            log.close(blk, "l2")
         self.carry = new_carry
         self.n0 = (self.n0 + iq.shape[1]) & 0xFFFFFF
 
@@ -760,35 +781,57 @@ class VDL2Pipeline:
         if self.use_device_gate:
             # the drain fetches verdicts and per-accept noise-floor
             # readings instead of the magnitude stream
+            log.open(blk, "gate")
             gout = self._dispatch_gate(dets, l2, l2_map, pwr3, base, H)
-            if self.step_ms is not None:
-                self._sync_time("gate", t0)
+            log.close(blk, "gate")
             return ((gout, self._candidate_fields(dets), l2, l2_map),
                     base, base + H)
         return ((mag16(pwr3),
                  self._candidate_fields(dets, not self.use_device_l2), l2,
                  l2_map), base, base + H)
 
-    def _submit_fetch(self, tree):
+    def _submit_fetch(self, tree, blk):
         if self._fetch_pool is None:
             self._fetch_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="vdl2-fetch")
-        return self._fetch_pool.submit(coalesced_get, tree)
+        return self._fetch_pool.submit(self._fetch, tree, blk)
+
+    def _fetch(self, tree, blk):
+        """The fetch thread's copy of one block's results (span
+        ``fetch`` of ``blk``, its event before the first operation),
+        then the block's device times (the copy waited for the stream,
+        so its events have completed) and the bytes it copied by part
+        of the tree."""
+        log = self.span_log
+        log.open(blk, "fetch")
+        out = coalesced_get(tree)
+        log.close(blk, "fetch")
+        log.fetched(blk, out)
+        return out
 
     def _drain_oldest(self) -> list[DecodedFrame]:
-        """Host-process the oldest in-flight block, if any."""
+        """Host-process the oldest in-flight block, if any (spans
+        ``drain`` > ``drain.wait``, ``drain.verdicts`` of its record)."""
         if not self._pending_q:
             return []
-        gated, fut, base, nf_base = self._pending_q.popleft()
+        gated, fut, base, nf_base, blk = self._pending_q.popleft()
+        log = self.span_log
+        log.open(blk, "drain")
+        log.open(blk, "drain.wait")
+        got = fut.result()
+        log.close(blk, "drain.wait")
+        log.open(blk, "drain.verdicts")
         if gated:
-            gout, fetched, l2_np, l2_map_np = fut.result()
-            return self._process_verdicts(gout, fetched, l2_np, l2_map_np,
-                                          base)
-        mags_np, fetched, l2_np, l2_map_np = fut.result()
-        self._stash_noise_block(mags_np, nf_base)
-        frames = self._process_candidates(base, False, fetched, l2_np,
-                                          l2_map_np)
-        self._finish_noise_block()
+            frames = self._process_verdicts(*got, base)
+        else:
+            mags_np, fetched, l2_np, l2_map_np = got
+            self._stash_noise_block(mags_np, nf_base)
+            frames = self._process_candidates(base, False, fetched, l2_np,
+                                              l2_map_np)
+            self._finish_noise_block()
+        log.close(blk, "drain.verdicts")
+        log.close(blk, "drain")
+        blk.frames = len(frames)
         return frames
 
     def _drain_pending(self) -> list[DecodedFrame]:
@@ -799,22 +842,33 @@ class VDL2Pipeline:
         return frames
 
     def finish(self) -> list[DecodedFrame]:
-        """Flush: resolve deferred candidates with the data we have."""
+        """Flush: resolve deferred candidates with the data we have (the
+        span ``finish`` of a record of its own, which counts the
+        flush's frames)."""
+        log = self.span_log
+        blk = log.new_block(self.step_ms is not None)
+        log.open(blk, "finish")
         frames = self._drain_pending()
+        flushed = self._flush()
+        log.close(blk, "finish")
+        blk.frames = len(flushed)
+        return frames + flushed
+
+    def _flush(self) -> list[DecodedFrame]:
+        """finish()'s EOF flush of the halo, after the drain."""
         if self._fetch_pool is not None:
             # EOF: release the background fetch thread (recreated
             # lazily if the pipeline is fed again)
             self._fetch_pool.shutdown(wait=False)
             self._fetch_pool = None
         if self.hist.shape[2] == 0:
-            return frames
+            return []
         if not self.use_device_l2:
             cands = find_and_slice(self.hist, SYNC_THRESHOLD,
                                    self.max_candidates, MAX_BURST_SYMS)
             fetched = coalesced_get(self._candidate_fields(cands, True))
-            frames.extend(self._process_candidates(
-                self.hist_base, True, fetched, None, None))
-            return frames
+            return self._process_candidates(self.hist_base, True, fetched,
+                                            None, None)
         # device L2: the halo's detections, then the sliced L2 step (the
         # batch launch_compacted_l2 gives on the fully sliced candidates)
         dets, phases, pwr = detect_planes(self.hist, SYNC_THRESHOLD,
@@ -836,14 +890,12 @@ class VDL2Pipeline:
                 self._freqs_f32, self.max_ppm, eof=True)
             gout_np, fetched, l2_np, l2_map_np = coalesced_get(
                 (gout, self._candidate_fields(dets), l2, l2_map))
-            frames.extend(self._process_verdicts(
-                gout_np, fetched, l2_np, l2_map_np, self.hist_base))
-            return frames
+            return self._process_verdicts(gout_np, fetched, l2_np,
+                                          l2_map_np, self.hist_base)
         fetched, l2_np, l2_map_np = coalesced_get(
             (self._candidate_fields(dets), l2, l2_map))
-        frames.extend(self._process_candidates(
-            self.hist_base, True, fetched, l2_np, l2_map_np))
-        return frames
+        return self._process_candidates(self.hist_base, True, fetched,
+                                        l2_np, l2_map_np)
 
 
 def load_state(pipe: VDL2Pipeline, state: dict) -> None:

@@ -7,25 +7,22 @@ samples (4 194 240 raw, the multiple of 80 nearest 2**22), fed again
 and again.  Two scenes:
 
 * ``single``: VDL2Pipeline with device L2 and device gating.  After
-  three warm-up feeds each block runs the pipeline's own steps one
-  after another (``_dispatch_block``: detection, L2, the gate and the
-  carried state, as feed_planar dispatches them; ``coalesced_get`` of
-  its tree; ``_process_verdicts``) and times
-    dispatch  host ms to enqueue detect, L2 and the gate, no sync
-    device    the torch.cuda.synchronize() wait after the dispatch
-    fetch     coalesced_get, with its bytes a part (gout, cand, l2, map)
-    host      _process_verdicts, split into
-      frame_build  its calls of burst._result_from_batch (RS rows to
-                   octets, HDLC unstuffing through the native library),
-      host_rest    the rest (the loop over the channels' state mirrors
-                   and slots, the counters, the DecodedFrames)
-  and counts its frames and frame builds.  These staged blocks are
-  serialized: the device waits through the fetch and the host step.  The staged
-  blocks' frames, with finish()'s, must equal those of feed_planar on
-  a fresh pipeline of as many blocks; that run's steady blocks give
-  feed_planar's own ms a block (dispatch overlapped with the drain of
-  a block two behind), and one more of its blocks is traced as it
-  runs, after a lead-in block: the idle share of the receive path.
+  three warm-up feeds each staged block is a ``feed_planar`` call with
+  the pipeline's ``step_ms`` on: each step waits for the device and the
+  block is fetched and drained in the same call.  Its times come from
+  the pipeline's own span log (core/spans.py): ``feed_planar``,
+  ``dispatch`` and its steps ``detect``, ``l2``, ``gate`` (each holding
+  its device work), ``fetch_host`` (the fetch and the drain), ``fetch``
+  on the fetch thread, ``drain`` with its ``drain.wait`` and
+  ``drain.verdicts`` (_process_verdicts), its frames, and on CUDA the
+  device ms of each step from the pipeline's events.  These staged
+  blocks are serialized: the device waits through the fetch and the
+  host step.  The staged blocks' frames, with finish()'s, must equal
+  those of feed_planar on a fresh pipeline of as many blocks; that
+  run's steady blocks give feed_planar's own ms a block (dispatch
+  overlapped with the drain of a block two behind) and their spans as
+  they run, and one more of its blocks is traced as it runs, after a
+  lead-in block: the idle share of the receive path.
 * ``mesh``: the same block through MeshPipeline at mesh (1, 2) on
   ``--mesh-devices`` (the device twice by default).  Synchronized
   blocks give each shard's channelizer and detection ms, the rest of
@@ -35,17 +32,25 @@ and again.  Two scenes:
   (the block's copy to the host, its concatenations); an
   unsynchronized block gives its wall.
 
-For each scene one more block runs under torch.profiler (and, for
-``single``, the feed_planar block above and a staged block whose
-detect, L2 and gate steps each synchronize before and after, so that
-each step's kernel launches can be counted); its trace is
-reduced to the block's wall ms, the union of the device's kernel, copy
-and set intervals, the device idle share 1 - union / wall, the kernel
-launches (in all and by stage annotation), the 10 device ops with the most time, the host ms and the
+For each scene one more block runs under torch.profiler (for
+``single`` a staged block, whose steps' kernels lie in their spans, and
+the feed_planar block above); the profiler records every thread, so the
+traces carry the pipeline's ``vdl2.*`` spans on both of its threads as
+stage annotations.  A trace is reduced to the block's wall ms, the
+union of the device's kernel, copy and set intervals, the device idle
+share 1 - union / wall, the kernel launches (in all and by stage
+annotation), the 10 device ops with the most time, the host ms and the
 device's idle ms inside each stage annotation, and the 5 longest idle
 gaps with the stage and host op running in each.  The profiler slows
 the host, so the traced block's wall stands beside an untraced one's.
-On the CPU the fields that need the card are null.
+On the CPU the fields that need the card are null.  The steady traced
+blocks' device times by step, which the pipeline takes between timing
+events, stand beside the kernel time that the trace shows launched in
+each step's span (``events_vs_kernels``).  Last, the span log's own
+cost on the pipeline's feed_planar of the block: microseconds a block
+inside the log's methods on the main thread and on the fetch thread,
+as the blocks run and with each drained in its own call
+(``span_log_cost``).
 
 JSON lines go to stdout, a summary to stderr.  From the repository root:
 
@@ -61,28 +66,34 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import (ProfilerActivity, _ExperimentalConfig, profile,
+                            record_function)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 from dumpvdl2_tpu_torch.constants import SPS, SYMBOL_RATE  # noqa: E402
-from dumpvdl2_tpu_torch.core import nf_gate, pipeline  # noqa: E402
+from dumpvdl2_tpu_torch.core import nf_gate  # noqa: E402
 from dumpvdl2_tpu_torch.core.pipeline import VDL2Pipeline  # noqa: E402
+from dumpvdl2_tpu_torch.core.spans import FETCH, STEPS  # noqa: E402
 from dumpvdl2_tpu_torch.dsp.frontend import to_planar  # noqa: E402
 from dumpvdl2_tpu_torch.parallel import sharded  # noqa: E402
 from dumpvdl2_tpu_torch.sim import synthesize_iq_raw  # noqa: E402
 from dumpvdl2_tpu_torch.utils.devices import resolve_device  # noqa: E402
-from dumpvdl2_tpu_torch.utils.fetch import coalesced_get  # noqa: E402
 
 CENTER = 136975000
 BLOCK_DEC = (1 << 22) // 80          # decimated samples a block
+SPANS = ("feed_planar", "dispatch", "detect", "l2", "gate", "fetch_host",
+         "drain", "drain.wait", "drain.verdicts")
 FETCH_PARTS = ("gout", "cand", "l2", "map")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+LOG_METHODS = ("new_block", "open", "close", "add", "fetched")
 HOST_CATS = ("cpu_op", "cuda_runtime")
 WARM_BLOCKS = 2
 
@@ -117,57 +128,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _nbytes(tree) -> int:
-    if isinstance(tree, (tuple, list)):
-        return sum(_nbytes(t) for t in tree)
-    if isinstance(tree, dict):
-        return sum(_nbytes(t) for t in tree.values())
-    return int(getattr(tree, "nbytes", 0))
+def block_stages(blk) -> dict:
+    """A block record's span ms (``<span>_ms``, dots as underscores;
+    ``fetch_ms`` on the fetch thread), device ms by step
+    (``<step>_dev_ms``, None off CUDA), the bytes its fetch copied by
+    part and frames."""
+    st = {f"{name.replace('.', '_')}_ms": blk.ms(name) for name in SPANS}
+    st["fetch_ms"] = blk.ms("fetch", FETCH)
+    for key in STEPS + ("fetch_lag",):
+        st[f"{key}_dev_ms"] = getattr(blk, f"{key}_dev")
+    st["fetch_bytes"] = None if blk.fetch_bytes is None else \
+        dict(zip(FETCH_PARTS, blk.fetch_bytes))
+    st["frames"] = blk.frames
+    return st
 
 
 def staged_block(pipe: VDL2Pipeline, planar: torch.Tensor):
-    """One block through the device-gated pipeline's own steps, one
-    after another: ``_dispatch_block`` (detection, L2, the gate, the
-    carried state), the wait, ``coalesced_get`` of its tree and
-    ``_process_verdicts``.  Returns (stage ms and fetch bytes, frames)."""
-    t0 = time.perf_counter()
-    with record_function("dispatch"):
-        tree, base, _ = pipe._dispatch_block(planar)
-    t1 = time.perf_counter()
-    with record_function("device"):
-        _sync(pipe.device)
-    t2 = time.perf_counter()
-    with record_function("fetch"):
-        fetched = coalesced_get(tree)
-    t3 = time.perf_counter()
-    # a bare clock around each frame build: a profiler annotation would
-    # add its own cost to each of the ~220 calls a wideband block
-    build = []
-    orig = pipeline._result_from_batch
-
-    def timed_build(*args):
-        tb = time.perf_counter()
-        try:
-            return orig(*args)
-        finally:
-            build.append((time.perf_counter() - tb) * 1e3)
-
-    pipeline._result_from_batch = timed_build
+    """One block through feed_planar with the pipeline's ``step_ms`` on
+    (each step synchronized, the block drained in the call).  Returns
+    (its stages from the pipeline's span log, frames)."""
+    pipe.step_ms = {}
     try:
-        with record_function("host"):
-            frames = pipe._process_verdicts(*fetched, base)
-        t4 = time.perf_counter()
+        frames = pipe.feed_planar(planar)
     finally:
-        pipeline._result_from_batch = orig
-    host_ms = (t4 - t3) * 1e3
-    return {"dispatch_ms": (t1 - t0) * 1e3, "device_ms": (t2 - t1) * 1e3,
-            "fetch_ms": (t3 - t2) * 1e3, "host_ms": host_ms,
-            "frame_build_ms": sum(build),
-            "host_rest_ms": host_ms - sum(build),
-            "block_ms": (t4 - t0) * 1e3,
-            "fetch_bytes": {p: _nbytes(a)
-                            for p, a in zip(FETCH_PARTS, fetched)},
-            "frames": len(frames), "frame_builds": len(build)}, frames
+        pipe.step_ms = None
+    return block_stages(pipe.span_log.blocks[-1]), frames
 
 
 def traced(fn, devices):
@@ -178,7 +163,8 @@ def traced(fn, devices):
     cuda = any(d.type == "cuda" for d in devices)
     if cuda:
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=acts, experimental_config=every_thread) as prof:
         out = fn()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -221,18 +207,69 @@ def _innermost(events, t: float):
     return min(hits, key=lambda e: e["dur"])["name"] if hits else None
 
 
+def kernel_ms_by_span(xs: list) -> dict:
+    """For each instance of a step annotation (``vdl2.detect``,
+    ``vdl2.l2``, ``vdl2.gate``), in time order: the device ms of the
+    kernels, copies and sets launched inside it on its thread (each
+    matched to its launch by correlation id), their count, and the ms
+    from the first one's start to the last one's end."""
+    launches = {}
+    for e in xs:
+        if e.get("cat") in LAUNCH_CATS:
+            c = e.get("args", {}).get("correlation")
+            if c is not None:
+                launches[c] = (e["tid"], e["ts"])
+    dev = [(launches.get(e.get("args", {}).get("correlation")), e)
+           for e in xs if e.get("cat") in DEVICE_CATS]
+    out = {}
+    for step in STEPS:
+        rows = []
+        for a in sorted((e for e in xs if e.get("cat") == "user_annotation"
+                         and e["name"] == "vdl2." + step),
+                        key=lambda e: e["ts"]):
+            a0, a1 = a["ts"], a["ts"] + a["dur"]
+            ops = [e for at, e in dev if at is not None
+                   and at[0] == a["tid"] and a0 <= at[1] <= a1]
+            rows.append({
+                "kernel_ms": sum(e["dur"] for e in ops) / 1e3,
+                "ops": len(ops),
+                "first_to_last_ms": (max(e["ts"] + e["dur"] for e in ops)
+                                     - min(e["ts"] for e in ops)) / 1e3
+                if ops else 0.0})
+        out[step] = rows
+    return out
+
+
+def events_vs_kernels(blocks: list, by_span: dict) -> list:
+    """The last dispatch records of ``blocks``, as many as the trace
+    has step annotations and in order, beside their steps' kernels: for
+    each step the record's event interval (``event_ms``) and the
+    trace's kernel ms, count and first-to-last ms of its annotation."""
+    n = min(len(rows) for rows in by_span.values())
+    out = []
+    for i, blk in enumerate(blocks[len(blocks) - n:]):
+        rec = {"seq": blk.seq}
+        for step in STEPS:
+            rec[step] = {"event_ms": getattr(blk, f"{step}_dev"),
+                         **by_span[step][len(by_span[step]) - n + i]}
+        out.append(rec)
+    return out
+
+
 def summarize_trace(events: list, device_trace: bool) -> dict:
     """Reduce a chrome trace holding one ``block`` annotation: the
     block's wall ms; with ``device_trace`` also the union of device
     intervals inside it, the idle share, the kernel launches and copies,
     the top 10 device ops by total time, the device's idle ms inside
-    each stage annotation (nested ones count in each), and the 5
-    longest idle gaps (the stage annotation and innermost host op
-    spanning each gap's middle), and the kernels whose middle lies in
-    each stage annotation (the stage's own launches where its
-    annotations synchronize the device before and after).  Without a
-    device trace those fields are None.  ``stage_ms`` is the host wall of each stage annotation
-    inside the block, summed over its calls."""
+    each stage annotation (nested ones count in each), the 5 longest
+    idle gaps (the stage annotation and innermost host op spanning each
+    gap's middle), the kernels whose middle lies in each stage
+    annotation (the stage's own launches where its annotations
+    synchronize the device before and after), and the kernel time
+    launched in each step annotation of the whole trace
+    (kernel_ms_by_span).  Without a device trace those fields are None.
+    ``stage_ms`` is the host wall of each stage annotation inside the
+    block, summed over its calls."""
     xs = [e for e in events if isinstance(e, dict) and e.get("ph") == "X"
           and "dur" in e]
     block = max((e for e in xs if e.get("cat") == "user_annotation"
@@ -247,7 +284,7 @@ def summarize_trace(events: list, device_trace: bool) -> dict:
     out = {"wall_ms": block["dur"] / 1e3, "stage_ms": stage_ms,
            "device_busy_ms": None,
            "idle_share": None, "kernel_launches": None, "copies": None,
-           "kernels_by_stage": None,
+           "kernels_by_stage": None, "kernel_ms_by_span": None,
            "top_ops": None, "idle_ms_by_stage": None, "idle_gaps": None}
     if not device_trace:
         return out
@@ -281,6 +318,7 @@ def summarize_trace(events: list, device_trace: bool) -> dict:
         device_busy_ms=busy / 1e3, idle_share=1.0 - busy / block["dur"],
         kernel_launches=sum(e["cat"] == "kernel" for e in dev),
         kernels_by_stage=kernels_by_stage,
+        kernel_ms_by_span=kernel_ms_by_span(xs),
         copies=sum(e["cat"] != "kernel" for e in dev),
         top_ops=[{"name": k, "ms": v[0] / 1e3, "count": v[1]}
                  for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])
@@ -307,15 +345,14 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
                    ) -> dict:
     """The single-device scene: ``blocks`` staged blocks and a traced
     one after the warm-up, then a fresh pipeline's feed_planar on as
-    many blocks, ``blocks`` of them timed and a steady one traced;
-    raises when the staged frames are not feed_planar's."""
+    many blocks, ``blocks`` of them timed (with their spans) and a
+    steady one traced; raises when the staged frames are not
+    feed_planar's."""
     pipe = VDL2Pipeline(freqs, CENTER, fs, oversample, device=device)
     if not (pipe.use_device_l2 and pipe.use_device_gate):
         raise RuntimeError("the staged profile needs device L2 and device "
                            "gating (DUMPVDL2_TPU_L2 / DUMPVDL2_TPU_GATE)")
     frames = []
-    # as many blocks in all as feed_planar's run below: the two traced
-    # staged blocks stand for its lead-in and traced blocks
     for _ in range(WARM_BLOCKS):
         frames += pipe.feed_planar(planar)
     frames += pipe._drain_pending()
@@ -324,22 +361,11 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
         st, fr = staged_block(pipe, planar)
         stats.append(st)
         frames += fr
-    timers = _single_timers(pipe, feed=False)
-    try:
-        (st, fr), trace = traced(synced_block(
-            lambda: staged_block(pipe, planar), [device]), [device])
-    finally:
-        timers.restore()
-    frames += fr
-    # a staged block whose detect, L2 and gate steps each wait for the
-    # device before and after: each step's kernels lie in its annotation
-    timers = _single_timers(pipe, feed=False, sync=True)
-    try:
-        (_, fr), stage_trace = traced(synced_block(
-            lambda: staged_block(pipe, planar), [device]), [device])
-    finally:
-        timers.restore()
-    frames += fr + pipe.finish()
+    (st, fr), trace = traced(synced_block(
+        lambda: staged_block(pipe, planar), [device]), [device])
+    # one block more as feed_planar runs it: as many blocks in all as
+    # the run below, whose lead-in and traced blocks these two stand for
+    frames += fr + pipe.feed_planar(planar) + pipe.finish()
 
     ref = VDL2Pipeline(freqs, CENTER, fs, oversample, device=device)
     want = []
@@ -356,16 +382,18 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
         # the lead-in block's device work, still running when the
         # traced block starts, is in the trace too
         out = ref.feed_planar(planar)
-        feed_timers = _single_timers(ref, feed=True)
-        try:
-            with record_function("block"):
-                out += ref.feed_planar(planar)
-        finally:
-            feed_timers.restore()
+        with record_function("block"):
+            out += ref.feed_planar(planar)
         return out
 
     fr, feed_trace = traced(steady_block, [device])
     want += fr + ref.finish()
+    records = list(ref.span_log.blocks)
+    steady = [block_stages(b) for b in
+              records[WARM_BLOCKS:WARM_BLOCKS + blocks]]
+    by_span = feed_trace["kernel_ms_by_span"]
+    checked = None if by_span is None else events_vs_kernels(
+        [b for b in records if b.span("dispatch")], by_span)
     got_rows, want_rows = frame_rows(frames), frame_rows(want)
     if [r[:6] for r in got_rows] != [r[:6] for r in want_rows]:
         raise AssertionError(f"staged frames differ from feed_planar's: "
@@ -376,9 +404,10 @@ def profile_single(freqs, fs, oversample, planar, device, blocks: int
         raise AssertionError(f"staged frames' ppm, power or noise floor "
                              f"differ from feed_planar's by {d_float}")
     return {"blocks": stats, "traced_block": st, "trace": trace,
-            "synced_stage_trace": stage_trace,
             "feed_planar_block_ms": feed_ms,
+            "feed_planar_blocks": steady,
             "feed_planar_trace": feed_trace,
+            "events_vs_kernels": checked,
             "frames": len(frames), "frames_equal_feed_planar": True,
             "max_float_diff": d_float}
 
@@ -422,26 +451,6 @@ class _Timers:
             else:            # a bound method: the class's again
                 delattr(owner, attr)
         self._undo = []
-
-
-def _single_timers(pipe: VDL2Pipeline, feed: bool,
-                   sync: bool = False) -> _Timers:
-    """Annotate the single-device pipeline's steps for the profiler
-    (with ``sync`` each waits for the device before and after):
-    detection, L2 and the gate; with ``feed`` also feed_planar's
-    dispatch, fetch (on the fetch thread), drain, host and frame-building
-    steps."""
-    t = _Timers([pipe.device], sync=sync)
-    t.wrap(pipeline, "process_block_detect", "detect")
-    t.wrap(pipeline, "l2_sliced", "l2")
-    t.wrap(pipe, "_dispatch_gate", "gate")
-    if feed:
-        t.wrap(pipe, "_dispatch_block", "dispatch")
-        t.wrap(pipeline, "coalesced_get", "fetch")
-        t.wrap(pipe, "_drain_oldest", "drain")
-        t.wrap(pipe, "_process_verdicts", "host")
-        t.wrap(pipeline, "_result_from_batch", "frame_build")
-    return t
 
 
 def _mesh_timers(pipe, sync: bool) -> _Timers:
@@ -513,6 +522,75 @@ def profile_mesh(freqs, fs, oversample, planar, devices, blocks: int
             "finish_frames": len(frames)}
 
 
+def span_log_cost(freqs, fs, oversample, planar, device, blocks: int
+                  ) -> dict:
+    """What the span log costs the pipeline's own feed_planar calls: a
+    pipeline fed ``planar`` (after a warm-up) with each method of its
+    log (LOG_METHODS) timed on the thread that calls it, wall less the
+    timer's own cost a call, over ``blocks`` blocks run two ways:
+    ``steady``, as feed_planar runs them (a block's calls overlap the
+    fetch of the one before, and a call that hands over the GIL or
+    enters the driver may wait for the other thread), and ``drained``,
+    each block drained in its own call, so that the threads do not
+    overlap and each call costs its own work.  Gives for each way
+    microseconds a block on the main thread and on the fetch thread,
+    the calls a block on each, and microseconds a call of each method
+    and span (``by_call``, e.g. ``close.detect``)."""
+    n = 20000
+    t = 0
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        t += time.perf_counter_ns() - t0
+    timer_ns = t / n
+    pipe = VDL2Pipeline(freqs, CENTER, fs, oversample, device=device)
+    log = pipe.span_log
+    for _ in range(WARM_BLOCKS):
+        pipe.feed_planar(planar)
+    main = threading.get_ident()
+    out = {"timer_ns": timer_ns, "blocks": blocks}
+    for way in ("steady", "drained"):
+        pipe._drain_pending()
+        spent: dict = {}
+        calls: dict = {}
+
+        def timed(method, fn):
+            def call(*args):
+                t0 = time.perf_counter_ns()
+                ret = fn(*args)
+                dt = time.perf_counter_ns() - t0 - timer_ns
+                key = (threading.get_ident() == main,
+                       method + ("." + args[1] if method in ("open", "close")
+                                 else ""))
+                spent[key] = spent.get(key, 0) + dt
+                calls[key] = calls.get(key, 0) + 1
+                return ret
+            return call
+
+        for name in LOG_METHODS:
+            setattr(log, name, timed(name, getattr(log, name)))
+        try:
+            for _ in range(blocks):
+                pipe.feed_planar(planar)
+                if way == "drained":
+                    pipe._drain_pending()
+            pipe._drain_pending()
+        finally:
+            for name in LOG_METHODS:
+                delattr(log, name)
+        rec = {}
+        for thread, is_main in (("main", True), ("fetch", False)):
+            keys = [k for k in spent if k[0] == is_main]
+            rec[f"{thread}_us_per_block"] = sum(
+                spent[k] for k in keys) / 1e3 / blocks
+            rec[f"{thread}_calls_per_block"] = sum(
+                calls[k] for k in keys) / blocks
+        rec["by_call"] = {k[1]: spent[k] / calls[k] / 1e3 for k in
+                          sorted(spent, key=lambda k: -spent[k])}
+        out[way] = rec
+    pipe.finish()
+    return out
+
+
 def card_line() -> str | None:
     """nvidia-smi's name and power limit of the first card, or None."""
     try:
@@ -552,6 +630,9 @@ def run(device: str = "cuda", channels: int = 256, oversample: int = 80,
     recs += [{"record": "block", "scene": "mesh", "block": i, **st}
              for i, st in enumerate(mesh.pop("blocks"))]
     recs.append({"record": "trace", "scene": "mesh", **mesh})
+    recs.append({"record": "span_log", **span_log_cost(
+        freqs, fs, oversample, block, dev,
+        100 if dev.type == "cuda" else blocks)})
     return recs
 
 
@@ -564,14 +645,15 @@ def summary(recs: list[dict]) -> list[str]:
                          f"channels, oversample {r['oversample']}, blocks "
                          f"of {r['block_samples']} samples")
         elif r["record"] == "block":
-            keys = [k for k in r if k.endswith("_ms")]
-            lines.append(f"{r['scene']} block {r['block']}: " + ", ".join(
-                f"{k[:-3]} {_fmt(r[k])}" for k in keys)
-                + (f"; fetch bytes {r['fetch_bytes']}"
-                   if "fetch_bytes" in r else "")
-                + f"; frames {r['frames']}"
-                + (f", frame builds {r['frame_builds']}"
-                   if "frame_builds" in r else ""))
+            lines.append(_stage_line(f"{r['scene']} block {r['block']}", r))
+        elif r["record"] == "span_log":
+            lines.append("span log, us a block in its methods: " + "; ".join(
+                f"{way} main {r[way]['main_us_per_block']:.2f} "
+                f"({r[way]['main_calls_per_block']:.0f} calls), fetch "
+                f"{r[way]['fetch_us_per_block']:.2f} "
+                f"({r[way]['fetch_calls_per_block']:.0f})"
+                for way in ("steady", "drained"))
+                + f"; {r['blocks']} blocks")
         else:
             for key in ("feed_planar_block_ms", "untraced_block_ms"):
                 if key in r:
@@ -579,13 +661,30 @@ def summary(recs: list[dict]) -> list[str]:
             staged = "staged " if r["scene"] == "single" else ""
             lines += _trace_lines(f"{r['scene']} {staged}traced block",
                                   r["trace"])
-            if "synced_stage_trace" in r:
-                lines += _trace_lines(f"{r['scene']} staged block, steps "
-                                      f"synchronized", r["synced_stage_trace"])
+            for i, st in enumerate(r.get("feed_planar_blocks", [])):
+                lines.append(_stage_line(f"{r['scene']} feed_planar block "
+                                         f"{i}", st))
             if "feed_planar_trace" in r:
                 lines += _trace_lines(f"{r['scene']} feed_planar traced "
                                       f"block", r["feed_planar_trace"])
+            for rec in r.get("events_vs_kernels") or []:
+                lines.append(f"  block {rec['seq']} events against kernels: "
+                             + ", ".join(
+                                 f"{k} {_fmt(rec[k]['event_ms'])} / "
+                                 f"{rec[k]['kernel_ms']:.3f} ms "
+                                 f"(x{rec[k]['ops']}, first to last "
+                                 f"{rec[k]['first_to_last_ms']:.3f})"
+                                 for k in STEPS))
     return lines
+
+
+def _stage_line(label: str, st: dict) -> str:
+    return (f"{label}: " + ", ".join(f"{k[:-3]} {_fmt(v)}"
+                                     for k, v in st.items()
+                                     if k.endswith("_ms"))
+            + (f"; fetch bytes {st['fetch_bytes']}"
+               if st.get("fetch_bytes") else "")
+            + f"; frames {st['frames']}")
 
 
 def _trace_lines(label: str, t: dict) -> list[str]:

@@ -38,6 +38,15 @@ def _unflatten(spec, leaves: list):
     return leaves[spec]
 
 
+def nbytes(tree) -> int:
+    """Bytes of the tree's leaves (None counts 0)."""
+    if isinstance(tree, (tuple, list)):
+        return sum(nbytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(nbytes(t) for t in tree.values())
+    return 0 if tree is None else int(tree.nbytes)
+
+
 def pack(tensors: list[torch.Tensor]) -> torch.Tensor:
     """The tensors' bytes, concatenated into one uint8 tensor on their
     device (bool leaves as one byte each)."""

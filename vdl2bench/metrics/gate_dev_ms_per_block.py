@@ -1,0 +1,11 @@
+"""gate_dev_ms_per_block: mean milliseconds a block of the device's
+timeline between the CUDA events the pipeline records in stream order
+after L2 and after the gate (G1, G2), read without a synchronize, over
+the blocks that ran untraced.  Not the gate's kernel time: the interval
+also holds the device's idle time while the host enqueues the step, and
+any fetch-thread copy the stream ran in between."""
+from ._spans import blocks, mean
+
+
+def read(run, win, verdict):
+    return mean(b.gate_dev for b in blocks())
