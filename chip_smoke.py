@@ -65,7 +65,8 @@ Phases (each must pass; any failure exits non-zero):
    samples with 24 bursts on stride-4 channels through feed_planar +
    finish; all 24 payloads must decode; K1, KC, G1, G2, the L2 front
    and L2P must each have launched 7 times on that run (6 blocks +
-   EOF), L2H, L2D and RS never, no plain version of a gate or L2
+   EOF, blocks 3-6 as replays of the steps' CUDA graphs, captured
+   once), L2H, L2D and RS never, no plain version of a gate or L2
    kernel may have run, and no plain detect or L2-front function
    (candidates_plain, find_and_slice, slice_windows, demod_window,
    l2_front_plain, _slot_compaction, compact_rows, the L2H call); the native
@@ -1549,6 +1550,12 @@ def run_wideband(freqs, fs, os_, sig, step_ms=None, device_gate=None):
     if step_ms is not None:
         # the EOF flush runs once per stream, not per block
         step_ms["finish_once"] = (time.perf_counter() - t0) * 1e3
+    # the gated main path replays its steps as CUDA graphs from the
+    # first block with the full halo (the third): one key, one capture
+    want = int(pipe.use_device_gate and WIDEBAND_BLOCKS > 2)
+    if pipe.graph_captures != want:
+        raise AssertionError(f"the wideband pipeline captured its steps "
+                             f"{pipe.graph_captures} times, expected {want}")
     return frames
 
 
@@ -1944,12 +1951,12 @@ def profile_phase() -> dict:
     recs = tool.run("cuda", blocks=3, mesh_devices=mesh_devices((1, 2)))
     for line in tool.summary(recs):
         log(f"profile: {line}")
-    single = next(r for r in recs if r.get("scene") == "single"
-                  and "synced_stage_trace" in r)
+    single = next(r for r in recs if r.get("record") == "trace"
+                  and r.get("scene") == "single")
     # information only: kernels are split by their midpoints between the
     # steps' annotations, so a short kernel at a step's edge can land in
     # its neighbour (check_l2's l2_step_launches counts the L2 step)
-    by_stage = single["synced_stage_trace"]["kernels_by_stage"]
+    by_stage = single["trace"]["kernels_by_stage"]
     log(f"profile: kernels a block by stage (steps synchronized, split by "
         f"the kernels' midpoints): {by_stage}")
     return {"records": recs, "kernels_by_stage": by_stage}

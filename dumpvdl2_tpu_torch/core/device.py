@@ -53,18 +53,24 @@ def detect_planes(block: torch.Tensor, threshold: float = SYNC_THRESHOLD,
 
 
 def process_block_detect(iq: torch.Tensor, taps: torch.Tensor,
-                         dphi: torch.Tensor, n0: int, carry: torch.Tensor,
+                         dphi: torch.Tensor, n0, carry: torch.Tensor,
                          hist: torch.Tensor, oversample: int, halo: int,
                          threshold: float = SYNC_THRESHOLD,
                          max_candidates: int = 64,
-                         max_symbols: int = 5616):
+                         max_symbols: int = 5616, graph=None):
     """process_block without the symbol slicing (device-L2 path).
 
     Returns ``(dets, phases, pwr, new_hist, new_carry, pwr3)``: the
     decimated block's phase and power planes (halo + fresh) stay on the
     device so the compacted L2 step (core/pipeline.l2_sliced) slices
-    windows for the real candidates only.
+    windows for the real candidates only.  ``n0`` is an int or a 0-dim
+    tensor (bandpass_channelize).  ``graph``, where given, is this step
+    captured on these very tensors (core/graphs.py): the call replays
+    it and returns copies of the detections and planes, and the graph's
+    own buffers for the rest, which hold the new state.
     """
+    if graph is not None:
+        return graph.replay()
     dec, new_carry = bandpass_channelize(iq, taps, dphi, n0, carry,
                                          oversample)
     block = torch.cat([hist, dec], dim=2)

@@ -101,11 +101,15 @@ def _isin(v: torch.Tensor, codes) -> torch.Tensor:
     return m
 
 
-def _rebase(state: dict, delta: int) -> dict:
-    """Shift carried indices to the new block base (int32-safe)."""
+def _rebase(state: dict, delta) -> dict:
+    """Shift carried indices to the new block base (int32-safe).
+    ``delta`` is an int or a 0-dim integer tensor on the state's device
+    (a CUDA graph's input, core/graphs.py): the same int32 arithmetic."""
+    if not isinstance(delta, torch.Tensor):
+        delta = int(delta)
     st = dict(state)
     for k in ("busy_until", "next_det_min", "hold", "ring_pos"):
-        st[k] = torch.clamp(state[k] - int(delta), min=_FLOOR)
+        st[k] = torch.clamp(state[k] - delta, min=_FLOOR)
     return st
 
 
@@ -248,12 +252,13 @@ def _out(g, nf_read, state) -> dict:
 
 
 def gate_nf_single(count, det_idx, sync_idx, sym_valid, dphi, l2_row,
-                   hdr_rows, bits_rows, pwr3, nf_base_rel: int, delta: int,
+                   hdr_rows, bits_rows, pwr3, nf_base_rel: int, delta,
                    state: dict, freqs, max_ppm: float):
     """Full device gate + NF step for the single-device pipeline.
 
     All index args/state are decimated-sample indices relative to the
-    current block's base; ``delta`` rebases the carried state from the
+    current block's base; ``delta`` (an int, or a 0-dim tensor as
+    :func:`_rebase` takes it) rebases the carried state from the
     previous base, ``pwr3`` (C, W) holds the powers of the block's
     fresh samples nf_base_rel, nf_base_rel + 3, ...  Returns (out,
     new_state) where ``out`` is what the host drain fetches.

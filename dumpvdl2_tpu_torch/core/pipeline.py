@@ -24,7 +24,11 @@ gating modes:
   straddle a block boundary are re-detected and decoded once fully
   contained,
 * the results come back in ONE device->host copy per block, in a
-  background thread, and the host works two blocks behind the device.
+  background thread, and the host works two blocks behind the device,
+* on CUDA, device L2 and gate, each steady block (full halo) replays
+  the three steps as CUDA graphs captured on the first block of its
+  shape (core/graphs.py, :func:`graph_key`): three graph launches and
+  a few copies in place of ~115 launches.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import math
 import os
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import scipy.signal
@@ -53,9 +58,12 @@ from ..utils.bits import symbols_to_bits_msb
 from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
                            debug_print_buf_hex)
 from ..utils.devices import resolve_device
+from ..utils import fetch
 from ..utils.fetch import coalesced_get
+from . import device as _device
 from . import nf_gate
 from .device import detect_planes, process_block, process_block_detect
+from .graphs import Snapshot, StepGraph
 from .gate_scan import (V_DEFER_DATA, V_EMPTY, V_EOF_TRUNC, V_HDR_REJECT,
                         V_L2_OVERFLOW, V_PPM_REJECT, V_SKIP, V_UNPROCESSED)
 from .metadata import DecodedFrame, MsgMetadata
@@ -65,6 +73,10 @@ from .spans import SpanLog
 # 16825 bits -> 5609 symbols.
 MAX_BURST_SYMS = 5616
 DEFAULT_HALO = MAX_BURST_SYMS * SPS + 256
+# Steady block shapes whose steps a pipeline keeps as CUDA graphs at
+# most: each key holds a memory pool as large as an eager block's peak
+# (~3.5 GB for 256 channels at oversample 80).
+GRAPH_KEYS = 4
 
 # Burst-header failure reasons (decided by header FEC alone).
 _HEADER_REASONS = frozenset({"hdr_reserved_bits", "too_long", "no_fec"})
@@ -161,7 +173,7 @@ def l2_front(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
 
 def l2_sliced(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
               sync_idx: torch.Tensor, dphi: torch.Tensor, K: int, S: int,
-              flush: bool = False):
+              flush: bool = False, graph: StepGraph | None = None):
     """Compact candidate slots, slice their symbol windows from the
     block's phase/power planes and run the batched L2 decode: on CUDA
     two kernels, the front (l2_front) and L2P behind the hdr-ok
@@ -175,8 +187,18 @@ def l2_sliced(phases: torch.Tensor, pwr: torch.Tensor, count: torch.Tensor,
     so the result equals launch_compacted_l2's on the fully sliced
     candidates.  Returns ``(l2, inv)``: the batch's result dict (with
     ``frame_pwr``) and the map slot -> row, or None when every slot
-    fits.
+    fits.  ``graph``, where given, is this step captured on these very
+    tensors (core/graphs.py): the call replays it and returns copies of
+    its results.
     """
+    if graph is not None:
+        return graph.replay()
+    return _l2_sliced(phases, pwr, count, sync_idx, dphi, K, S, flush)
+
+
+def _l2_sliced(phases, pwr, count, sync_idx, dphi, K: int, S: int,
+               flush: bool):
+    """:func:`l2_sliced`'s eager step, which a graph captures."""
     front = l2_front(phases, pwr, count, sync_idx, dphi, K, S)
     take, inv = front.pop("take"), front.pop("inv")
     symbols, frame_pwr = front.pop("symbols"), front.pop("frame_pwr")
@@ -213,6 +235,29 @@ class ChannelState:
         _stats.increment_per_channel(self.freq, counter, n)
 
 
+def graph_key(device: torch.device, device_l2: bool, device_gate: bool,
+              H: int, N: int, C: int, T: int, K: int, S: int):
+    """The key under which a block's three device steps replay as CUDA
+    graphs, or None where they run eagerly: on another device than
+    CUDA, in host-L2 or host-gated mode, while the halo ``H`` grows, and
+    for a block with no fresh samples (the EOF flush).  A block of
+    ``N`` samples on ``C`` channels, ``T`` taps, ``K`` slots and ``S``
+    symbols has the key (N, C, T, H, K, S)."""
+    if device.type != "cuda" or not (device_l2 and device_gate) \
+            or H != DEFAULT_HALO or N <= 0:
+        return None
+    return (N, C, T, H, K, S)
+
+
+class _BlockGraphs(NamedTuple):
+    """One steady block shape's captured steps: the detect graph's
+    input ``iq`` and the ``detect``, ``l2`` and ``gate`` graphs."""
+    iq: torch.Tensor
+    detect: StepGraph
+    l2: StepGraph
+    gate: StepGraph
+
+
 def resolve_device_l2(device_l2: bool | None = None) -> bool:
     """Whether bursts are decoded batched on the device: ``device_l2``
     if given, else on unless DUMPVDL2_TPU_L2 is "0".  (The JAX
@@ -242,7 +287,10 @@ class VDL2Pipeline:
     ``device_gate`` the gating mode (see :func:`resolve_device_gate`);
     host L2 implies host gating, as in the JAX package.
     ``span_log`` (core/spans.py) records each block's host spans, its
-    device time by step and its frames.  ``step_ms``, when set to a
+    device time by step and its frames.  On CUDA, with device L2 and
+    gate, steady blocks replay their steps as CUDA graphs
+    (:func:`graph_key`); ``graph_captures`` counts the captures, one a
+    key.  ``step_ms``, when set to a
     dict, makes each block synchronize after its detect, L2 and
     (device-gated) gate steps and after draining, and adds those spans'
     milliseconds there under ``detect``, ``l2``, ``gate`` and
@@ -301,6 +349,12 @@ class VDL2Pipeline:
         self.last_deferred_min: int | None = None
         self.step_ms: dict | None = None
         self.span_log = SpanLog(self.device)
+        # CUDA graphs by graph_key, the carried state they read and
+        # write in place (made at the first capture), and their stream
+        self._graphs: dict = {}
+        self._static: dict | None = None
+        self._capture_stream = None
+        self.graph_captures = 0
 
     # ----------------------------------------------------------- noise floor
     # The reference updates its magnitude EMA + noise floor only in
@@ -584,15 +638,15 @@ class VDL2Pipeline:
                                                   device=self.device)
         return self._gate_state
 
-    def _dispatch_gate(self, dets, l2, l2_map, pwr3, base: int, H: int):
-        """Launch the device gate + NF step for one block (its state
-        chains on the device; see core/nf_gate.py)."""
-        out, self._gate_state = nf_gate.gate_nf_single(
+    def _dispatch_gate(self, dets, l2, l2_map, pwr3, H: int, delta):
+        """Launch the device gate + NF step for one block on the carried
+        gate state: ``(out, new_state)`` (the state chains on the
+        device; see core/nf_gate.py)."""
+        return nf_gate.gate_nf_single(
             dets.count, dets.det_idx, dets.sync_idx, dets.sym_valid,
             dets.dphi, self._gate_rows(l2_map), l2["hdr_ok"],
-            l2["bits_consumed"], pwr3, H, self._gate_delta(base),
-            self._gate_state_now(), self._freqs_f32, self.max_ppm)
-        return out
+            l2["bits_consumed"], pwr3, H, delta, self._gate_state_now(),
+            self._freqs_f32, self.max_ppm)
 
     def _process_verdicts(self, gout, fetched, l2_np, l2_map_np,
                           base: int) -> list[DecodedFrame]:
@@ -736,34 +790,45 @@ class VDL2Pipeline:
     def _dispatch_block(self, iq: torch.Tensor):
         """Enqueue one block's device work (detection, L2 and, gated,
         the gate) and advance the carried stream state, each step a span
-        of the current call's record; no wait but under ``step_ms``.
-        Returns the tree to fetch for the drain, the block's base and
-        its noise-floor base."""
+        of the current call's record; no wait but under ``step_ms``.  A
+        steady block replays the steps' CUDA graphs (:meth:`_graphs_for`,
+        the record's ``graphed``).  Returns the tree to fetch for the
+        drain (a :class:`fetch.Packed` one for graphs), the block's base
+        and its noise-floor base."""
         log = self.span_log
         blk = log.current
         H = self.hist.shape[2]
+        g = self._graphs_for(iq.shape[1], H)
+        n0 = self.n0 & 0xFFFFFF
         if not self.use_device_l2:
             # host L2: every candidate's window is sliced on the device
             # and decoded on the host
             log.open(blk, "detect")
             dets, new_hist, new_carry, pwr3 = process_block(
-                iq, self.taps, self.dphi, self.n0 & 0xFFFFFF, self.carry,
+                iq, self.taps, self.dphi, n0, self.carry,
                 self.hist, self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
                 self.max_candidates, MAX_BURST_SYMS)
             log.close(blk, "detect")
             l2 = l2_map = None
         else:
             log.open(blk, "detect")
+            if g is not None:
+                blk.graphed = True
+                self._bind_static()
+                g.iq.copy_(iq)
+                iq, n0 = g.iq, self._static["n0"].fill_(n0)
             dets, phases, pwr, new_hist, new_carry, pwr3 = \
                 process_block_detect(
-                    iq, self.taps, self.dphi, self.n0 & 0xFFFFFF,
-                    self.carry, self.hist, self.oversample, DEFAULT_HALO,
-                    SYNC_THRESHOLD, self.max_candidates, MAX_BURST_SYMS)
+                    iq, self.taps, self.dphi, n0, self.carry, self.hist,
+                    self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
+                    self.max_candidates, MAX_BURST_SYMS,
+                    graph=None if g is None else g.detect)
             log.close(blk, "detect")
             log.open(blk, "l2")
             l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
                                    dets.dphi, self.max_candidates,
-                                   MAX_BURST_SYMS)
+                                   MAX_BURST_SYMS,
+                                   graph=None if g is None else g.l2)
             if l2_map is not None:
                 l2_map = l2_map.reshape(len(self.channels),
                                         self.max_candidates)
@@ -782,13 +847,135 @@ class VDL2Pipeline:
             # the drain fetches verdicts and per-accept noise-floor
             # readings instead of the magnitude stream
             log.open(blk, "gate")
-            gout = self._dispatch_gate(dets, l2, l2_map, pwr3, base, H)
+            if g is not None:
+                self._static["delta"].fill_(self._gate_delta(base))
+                tree = g.gate.replay()
+            else:
+                gout, self._gate_state = self._dispatch_gate(
+                    dets, l2, l2_map, pwr3, H, self._gate_delta(base))
+                tree = (gout, self._candidate_fields(dets), l2, l2_map)
             log.close(blk, "gate")
-            return ((gout, self._candidate_fields(dets), l2, l2_map),
-                    base, base + H)
+            if g is not None:
+                tree = self._fetch_copy(*tree, blk)
+            return tree, base, base + H
         return ((mag16(pwr3),
                  self._candidate_fields(dets, not self.use_device_l2), l2,
                  l2_map), base, base + H)
+
+    # ------------------------------------------------------- CUDA graphs
+    def _graphs_for(self, N: int, H: int) -> _BlockGraphs | None:
+        """The graphs of a block of ``N`` samples on a halo of ``H``
+        (captured here on the first steady block of its key, up to
+        GRAPH_KEYS keys), or None: the block runs eagerly."""
+        key = graph_key(self.device, self.use_device_l2,
+                        self.use_device_gate, H, N, len(self.channels),
+                        self.taps.shape[0], self.max_candidates,
+                        MAX_BURST_SYMS)
+        if key is None:
+            return None
+        g = self._graphs.get(key)
+        if g is None and len(self._graphs) < GRAPH_KEYS:
+            g = self._graphs[key] = self._capture(N)
+        return g
+
+    def _bind_static(self) -> None:
+        """Point the carried state at the graphs' buffers, copying in
+        what eager code (the EOF flush, load_state) left elsewhere."""
+        st = self._static
+        for name in ("taps", "dphi", "carry", "hist"):
+            cur = getattr(self, name)
+            if cur is not st[name]:
+                st[name].copy_(cur)
+                setattr(self, name, st[name])
+        gate = self._gate_state_now()
+        if gate is not st["gate"]:
+            for k, buf in st["gate"].items():
+                buf.copy_(gate[k])
+            self._gate_state = st["gate"]
+
+    def _capture(self, N: int) -> _BlockGraphs:
+        """Capture the three steps of a steady block of ``N`` samples,
+        with no fetch in flight and the device idle, on the pipeline's
+        capture stream, into one memory pool (replayed in this order).
+        Each graph reads the carried state from its buffers and writes
+        the new state back there at its end; n0 and the gate's base
+        delta are 0-dim device inputs, set before each replay."""
+        wait([entry[1] for entry in self._pending_q])
+        torch.cuda.synchronize(self.device)
+        if self._static is None:
+            self._static = {
+                "taps": self.taps, "dphi": self.dphi,
+                "carry": torch.empty_like(self.carry),
+                "hist": torch.empty_like(self.hist),
+                "gate": {k: torch.empty_like(v)
+                         for k, v in self._gate_state_now().items()},
+                "n0": torch.zeros((), dtype=torch.int64,
+                                  device=self.device),
+                "delta": torch.zeros((), dtype=torch.int32,
+                                     device=self.device)}
+            self._capture_stream = torch.cuda.Stream(self.device)
+        self._bind_static()
+        st = self._static
+        C, K, S = len(self.channels), self.max_candidates, MAX_BURST_SYMS
+        iq = torch.empty((2, N), dtype=torch.float32, device=self.device)
+        made = {}
+
+        # the steps' own functions, not this module's names for them: a
+        # capture is no block, and what wraps those names must not see
+        # it
+        def detect():
+            out = _device.process_block_detect(
+                iq, st["taps"], st["dphi"], st["n0"], st["carry"],
+                st["hist"], self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
+                K, S)
+            dets, phases, pwr, new_hist, new_carry, pwr3 = out
+            st["hist"].copy_(new_hist)
+            st["carry"].copy_(new_carry)
+            made.update(dets=dets, phases=phases, pwr=pwr, pwr3=pwr3)
+            snap, hist, carry = Snapshot(tuple(dets)), st["hist"], st["carry"]
+            return lambda: (type(dets)(*snap.copy()), phases.clone(),
+                            pwr.clone(), hist, carry, pwr3)
+
+        def l2():
+            d = made["dets"]
+            made["l2"] = _l2_sliced(made["phases"], made["pwr"], d.count,
+                                    d.sync_idx, d.dphi, K, S, False)
+            return Snapshot(made["l2"]).copy
+
+        def gate():
+            d, (l2, inv) = made["dets"], made["l2"]
+            l2_map = None if inv is None else inv.reshape(C, K)
+            out, new_state = self._dispatch_gate(
+                d, l2, l2_map, made["pwr3"], DEFAULT_HALO, st["delta"])
+            for k, buf in st["gate"].items():
+                buf.copy_(new_state[k])
+            tree = (out, self._candidate_fields(d), l2, l2_map)
+            buf = fetch.pack_tree(tree)
+            return lambda: (tree, buf)
+
+        pool = torch.cuda.graph_pool_handle()
+        graphs = _BlockGraphs(iq, *(
+            StepGraph(step, pool, self._capture_stream)
+            for step in (detect, l2, gate)))
+        self.graph_captures += 1
+        return graphs
+
+    def _fetch_copy(self, tree, buf: torch.Tensor, blk) -> fetch.Packed:
+        """A graphed block's fetch, enqueued by the main thread after the
+        gate replay, before the next replay overwrites ``buf`` (the gate
+        graph's pack of ``tree``): one non-blocking copy into pinned
+        host memory, and the event the fetch thread waits for.  (A
+        pageable copy made by the fetch thread waits in the stream for
+        all the work enqueued by then, and the main thread's CUDA calls
+        stall behind it meanwhile.)  The copy is the fetch's first
+        device operation, so the record's ``fetch`` event goes here
+        (core/spans.py)."""
+        self.span_log.fetch_enqueued(blk)
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return fetch.Packed(tree, host, ready)
 
     def _submit_fetch(self, tree, blk):
         if self._fetch_pool is None:

@@ -15,7 +15,8 @@ as ``outer``, (sequence number, name).
 
 On CUDA the log records timing events in stream order at span
 boundaries (detect's start, each step's end, and the fetch's start on
-the fetch thread), on one record in EVENT_EVERY and on every record of
+the fetch thread, or for a graphed block the main thread's enqueue of
+its fetch copy), on one record in EVENT_EVERY and on every record of
 a measuring call (``step_ms``, a profiler);
 :meth:`SpanLog.fetched` turns them into milliseconds on the fetch
 thread once its copy is done: the copy waits for the stream, so every
@@ -98,19 +99,22 @@ class Block:
     emission stamp), in a ``synced`` record the bytes its fetch copied
     by part of the fetched tree (``fetch_bytes``), whether a call that
     dispatched or drained it ran with ``step_ms`` (``synced``) or under
-    a profiler (``profiled``), and on CUDA the milliseconds of the
-    device's timeline between its events: before and after each step
-    (``detect_dev``, ``l2_dev``, ``gate_dev``) and from its last step to
-    its fetch's first operation (``fetch_lag_dev``); None where not
-    measured (``timed``: the record gets events)."""
+    a profiler (``profiled``), whether its dispatch replayed the steps'
+    CUDA graphs (``graphed``, core/graphs.py), and on CUDA the
+    milliseconds of the device's timeline between its events: before
+    and after each step (``detect_dev``, ``l2_dev``, ``gate_dev``) and
+    from its last step to its fetch's first operation
+    (``fetch_lag_dev``); None where not measured (``timed``: the record
+    gets events)."""
 
     __slots__ = ("seq", "t", "outer", "frames", "fetch_bytes", "synced",
-                 "profiled", "detect_dev", "l2_dev", "gate_dev",
+                 "profiled", "graphed", "detect_dev", "l2_dev", "gate_dev",
                  "fetch_lag_dev", "events")
 
     def __init__(self, seq: int, synced: bool, profiled: bool,
                  timed: bool):
         self.seq, self.synced, self.profiled = seq, synced, profiled
+        self.graphed = False
         self.t = [None] * _STAMPS
         self.outer = self.frames = self.fetch_bytes = None
         self.detect_dev = self.l2_dev = self.gate_dev = None
@@ -227,7 +231,8 @@ class SpanLog:
             rf = self._ranges[(blk.seq, name)] = record_function(
                 "vdl2." + name)
             rf.__enter__()
-        if blk.events is not None and name in _EVENT_AT_OPEN:
+        if blk.events is not None and name in _EVENT_AT_OPEN \
+                and _EVENT_AT_OPEN[name] not in blk.events:
             self._event(blk, _EVENT_AT_OPEN[name])
 
     def close(self, blk: Block, name: str) -> None:
@@ -247,6 +252,14 @@ class SpanLog:
         blk.t[SLOT[name] + 1] = time.perf_counter_ns()
         if name in _CALLS and self._calls:
             self._calls.pop()
+
+    def fetch_enqueued(self, blk: Block) -> None:
+        """``blk``'s fetch copy is enqueued now on this (the main)
+        thread's stream, as for a graphed block (core/pipeline.py): the
+        ``fetch`` event goes here, in stream order before the copy, and
+        the fetch thread's span records none."""
+        if blk.events is not None and self._cuda:
+            self._event(blk, "fetch")
 
     def add(self, blk: Block, name: str, start: int) -> None:
         """Span ``name`` of ``blk`` from ``start`` to now, for a span

@@ -124,7 +124,7 @@ def mix_filter_decimate_impl(iq: torch.Tensor, taps: torch.Tensor,
 
 
 def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,
-                        dphi: torch.Tensor, n0: int,
+                        dphi: torch.Tensor, n0: int | torch.Tensor,
                         raw_carry: torch.Tensor, oversample: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """One front-end block for all channels.
@@ -134,7 +134,9 @@ def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,
       taps: (T,) float32 FIR taps, T % oversample == 0 (prepare_taps).
       dphi: (C,) int64 per-channel 24-bit NCO phase increments (uint32
         values, see nco_dphi).
-      n0: global index of iq[0] modulo 2^24.
+      n0: global index of iq[0] modulo 2^24: an int, or a 0-dim int64
+        tensor on iq's device (a CUDA graph's input, core/graphs.py),
+        which gives the same result.
       raw_carry: (2, T-1) float32 raw wideband tail of the previous
         block (zeros at stream start).
     Returns:

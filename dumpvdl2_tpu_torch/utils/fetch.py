@@ -8,9 +8,15 @@ the host once and unpacks zero-copy numpy views.  On the CPU there is
 no link to amortize: each tensor leaf becomes its numpy view as is.
 
 A tree is any nesting of tuples, lists and dicts whose leaves are
-tensors, numpy arrays or None (None passes through).
+tensors, numpy arrays or None (None passes through).  A :class:`Packed`
+tree comes with its tensors' bytes already packed (a copy taken in
+stream order, core/pipeline.py's graphed blocks: into pinned host
+memory, with an event that marks the copy done): its fetch reads
+nothing of the tree but its leaves' shapes and dtypes.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,21 +79,48 @@ def unpack(buf: np.ndarray, like: list[torch.Tensor]) -> list[np.ndarray]:
     return out
 
 
+class Packed(NamedTuple):
+    """A tree and ``buf``, :func:`pack_tree` of it taken earlier (on
+    the host or the device): what :func:`coalesced_get` returns for it
+    are the values of that moment, whatever the tree's tensors hold
+    now.  ``ready``, where given, is a CUDA event recorded after the
+    copy into ``buf``, which the fetch waits for."""
+    tree: object
+    buf: torch.Tensor
+    ready: torch.cuda.Event | None = None
+
+
+def pack_tree(tree) -> torch.Tensor:
+    """:func:`pack` of every tensor leaf of ``tree``, in the order
+    :func:`coalesced_get` unpacks a :class:`Packed` tree."""
+    leaves: list = []
+    _flatten(tree, leaves)
+    return pack([x for x in leaves if isinstance(x, torch.Tensor)])
+
+
 def coalesced_get(tree):
     """Fetch a tree of tensors to the host in ONE transfer.
 
     Returns the same structure with numpy arrays (views into one
     backing buffer, to be treated as read-only).  Host numpy leaves are
-    returned as they are.
+    returned as they are.  For a :class:`Packed` tree every tensor leaf
+    comes from its ``buf``.
     """
+    buf = None
+    if isinstance(tree, Packed):
+        tree, buf, ready = tree
+        if ready is not None:
+            ready.synchronize()
     leaves: list = []
     spec = _flatten(tree, leaves)
-    cuda = [i for i, x in enumerate(leaves)
-            if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
+    sent = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)
+            and (buf is not None or x.device.type == "cuda")]
     out = [x.numpy() if isinstance(x, torch.Tensor) and x.device.type == "cpu"
            else x for x in leaves]
-    if cuda:
-        like = [leaves[i] for i in cuda]
-        for i, arr in zip(cuda, unpack(pack(like).cpu().numpy(), like)):
+    if sent:
+        like = [leaves[i] for i in sent]
+        if buf is None:
+            buf = pack(like)
+        for i, arr in zip(sent, unpack(buf.cpu().numpy(), like)):
             out[i] = arr
     return _unflatten(spec, out)
