@@ -74,22 +74,35 @@ Phases (each must pass; any failure exits non-zero):
    Python spec (_frames_py) never.  Prints the sustained ingest rate,
    the realtime factor, the per-block step breakdown, the finish() time
    and peak device memory;
-7. the host-gated path (device_gate=False) on the same scene: all its
+7. the file path: the wideband scene as an S16_LE capture (rounded
+   half to even, saturated).  KI (csrc/ingest.cu) against its plain
+   twin, block and residual bit for bit with one launch a call: the
+   scene's first block aligned, after 3 pending bytes and 78 residual
+   columns, after 40 residual columns, a U8 block of every value after
+   a pending byte, ragged short buffers; VDL2Pipeline.feed_raw from
+   pinned memory on the capture's reads (the first 5 bytes short of a
+   block), KI launched once a read and each planar block the twin's
+   on the same bytes, the frames equal to iq_blocks + feed's on the
+   same reads; the capture as a file through io/iqfile.py::
+   feed_iq_file, timed, with the gated run's launches and KI once a
+   read, all 24 payloads, its spans and input counts; KI's times, its
+   plain version's, its bound (bytes) and the block's pinned copy;
+8. the host-gated path (device_gate=False) on the same scene: all its
    payloads must decode and its frames equal the gated run's (bytes and
    freq exact, nf_pwr_dbfs within 1e-4 dB), KC, the front and L2P
    must each have launched, L2H, L2D and RS never, and no plain version
    of an L2 kernel or plain detect or L2-front function run; its realtime
    factor and breakdown beside the gated ones;
-8. the CLI on the card: the correctness vector written as an S16_LE file
+9. the CLI on the card: the correctness vector written as an S16_LE file
    and decoded by ``python3 -m dumpvdl2_tpu_torch`` (default platform,
    the GPU) in a subprocess; it must exit 0 and give one JSON record
    per burst on its frequency;
-9. host L2 (device_l2=False, host-gated): the correctness vector and the
+10. host L2 (device_l2=False, host-gated): the correctness vector and the
    first two blocks of the wideband scene; the frames must equal the
    device-L2 host-gated run's on the same span (bytes, freq and idx
    exact, nf_pwr_dbfs within 1e-4 dB) and every payload in the span must
    decode; wall times of both;
-10. G1 against its plain version on random merged slot grids,
+11. G1 against its plain version on random merged slot grids,
    K' = Tn*K = 128, 256 and 512; for each mesh shape, K1 against its
    plain version on every shard's phase plane of a real block ((256,
    H + Ml + F) at (1, 2), (128, H + Ml + F) at (2, 2); identical
@@ -107,7 +120,7 @@ Phases (each must pass; any failure exits non-zero):
    shard a block plus once at EOF, G1, G2, L2H and L2P once a block
    plus once at EOF, the front, L2D and RS never, no plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
-11. the multi-process path (parallel/multihost.py): ``init_distributed()``
+12. the multi-process path (parallel/multihost.py): ``init_distributed()``
    is a no-op without WORLD_SIZE; two ranks of
    dumpvdl2_tpu_torch/tools/multihost_worker.py --scene wideband, each
    on cuda:0 twice, join a gloo group on a localhost port and each runs
@@ -118,7 +131,7 @@ Phases (each must pass; any failure exits non-zero):
    and its K1 launches must be Tn = 2 a block with no plain version run.
    Each rank's peak device memory is printed.  A rank that fails, hangs
    or exits non-zero fails the run;
-12. the stage profile (dumpvdl2_tpu_torch/tools/profile_wideband_e2e.py):
+13. the stage profile (dumpvdl2_tpu_torch/tools/profile_wideband_e2e.py):
    the gated single-device block staged three times (dispatch, device,
    fetch with its bytes, host) and traced once (device busy and idle
    share, kernel launches, top ops, idle gaps), its frames equal to
@@ -127,7 +140,7 @@ Phases (each must pass; any failure exits non-zero):
    printed only; phase 4 counts the L2 step's exactly); a steady
    feed_planar block traced as it runs; the mesh (1, 2) block's
    per-step split and trace;
-13. the host library (dumpvdl2_tpu_torch/native): on every burst
+14. the host library (dumpvdl2_tpu_torch/native): on every burst
    stream the gated wideband run unstuffs, and on 2 000 seeded fuzz
    streams, the C unstuffing and FCS equal the Python spec's exactly
    (frames, error, order, CRC); the gated run's frames written as a
@@ -161,8 +174,8 @@ from dumpvdl2_tpu_torch.constants import (HEADER_LEN, SPS, SYMBOL_RATE,
 from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
-from dumpvdl2_tpu_torch.dsp import sync_kernel
-from dumpvdl2_tpu_torch.io import rawframes
+from dumpvdl2_tpu_torch.dsp import ingest_kernel, sync_kernel
+from dumpvdl2_tpu_torch.io import iqfile, rawframes
 from dumpvdl2_tpu_torch.link import crc, unstuff
 from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
                                     frame_with_fcs, synthesize_iq_raw,
@@ -1648,6 +1661,221 @@ def compare_frames(want: list, got: list, label: str) -> float:
     return d_nf
 
 
+# ------------------------------------------------------------ file path
+# KI's least instructions a value: the integer-to-float conversion, the
+# IEEE division (__fdiv_rn: a reciprocal, two Newton steps and the
+# rounding fix), U8's subtraction and the store; it moves more bytes
+# than it issues instructions.
+KI_OPS_PER_VALUE = 12
+
+
+def s16_capture(sig: torch.Tensor) -> bytes:
+    """The planar scene as a recorder writes it in S16_LE: scaled so
+    that 1.0 is 32 768, rounded half to even and saturated."""
+    q = torch.round(sig * 32768.0).clamp_(-32768, 32767).to(torch.int16)
+    return q.t().contiguous().cpu().numpy().astype("<i2").tobytes()
+
+
+def file_reads(data: bytes) -> list[bytes]:
+    """The capture in reads of a block's bytes, but that the first ends
+    5 bytes early, inside a sample pair and past the last whole block:
+    the second call carries 3 pending bytes and 78 residual columns."""
+    B = 4 * WIDEBAND_BLOCK
+    return [data[:B - 5], data[B - 5:2 * B]] + \
+        [data[k:k + B] for k in range(2 * B, len(data), B)]
+
+
+def host_u8(b: bytes) -> torch.Tensor:
+    return torch.frombuffer(bytearray(b), dtype=torch.uint8)
+
+
+def compare_ki(raw: bytes, pend: bytes, fmt: str, residual: torch.Tensor,
+               label: str) -> None:
+    """KI on the card against its plain twin on the CPU on the same
+    bytes: block and residual equal bit for bit, one launch."""
+    want = ingest_kernel.ingest_plain(host_u8(raw), pend, fmt, residual, 80)
+    n0 = ingest_kernel.launches
+    got = ingest_kernel.ingest_cuda(host_u8(raw).cuda(), pend, fmt,
+                                    residual.cuda(), 80)
+    torch.cuda.synchronize()
+    if ingest_kernel.launches != n0 + 1:
+        raise AssertionError(f"KI {label}: {ingest_kernel.launches - n0} "
+                             f"launches for one call")
+    for part, g, w in zip(("block", "residual"), got, want):
+        if g.shape != w.shape or not torch.equal(
+                g.cpu().view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"KI {label}: its {part} "
+                                 f"{tuple(g.shape)} differs from the plain "
+                                 f"twin's {tuple(w.shape)}")
+
+
+def check_ki(data: bytes) -> None:
+    """KI against its plain twin at the wideband block: the scene's
+    S16_LE capture aligned, after 3 pending bytes and 78 residual
+    columns (the byte-wise path) and after 40 (the vector path); a U8
+    block of every value after a pending byte and 79 residual columns;
+    ragged short buffers."""
+    B = 4 * WIDEBAND_BLOCK
+    gen = torch.Generator().manual_seed(5)
+    u8 = (np.arange(2 * WIDEBAND_BLOCK) % 256).astype(np.uint8).tobytes()
+    cases = [("S16_LE", data[:B], b"", 0, "the scene's first block"),
+             ("S16_LE", data[B:2 * B - 1], data[B - 3:B], 78,
+              "3 pending bytes and 78 residual columns"),
+             ("S16_LE", data[2 * B:3 * B], b"", 40, "40 residual columns"),
+             ("U8", u8, b"\x80", 79,
+              "U8 of every value, a pending byte, 79 residual columns"),
+             ("U8", u8[:12_345], b"", 3, "U8, 12 345 bytes"),
+             ("S16_LE", data[:12_347], b"\x01\x02", 5, "S16, 12 347 bytes")]
+    for fmt, raw, pend, R, label in cases:
+        compare_ki(raw, pend, fmt, torch.randn((2, R), generator=gen), label)
+    log(f"KI: equal to its plain twin bit for bit (block and residual, one "
+        f"launch each) on {len(cases)} cases: "
+        + "; ".join(c[4] for c in cases))
+
+
+def file_path_phase(scene, want_launches: dict) -> dict:
+    """The wideband scene as an S16_LE capture through the file path on
+    the card.  KI against its twin (check_ki); feed_raw from pinned
+    memory on reads that carry a partial pair and a residual, each
+    block bit for bit the twin's on the same bytes and the frames those
+    of iq_blocks + feed on the same reads; then the capture as a file
+    through feed_iq_file, timed, with its kernel launches (KI once a
+    read) and every payload; KI's times and bound."""
+    freqs, fs, os_, sig, want, _ = scene
+    data = s16_capture(sig)
+    check_ki(data)
+    reads = file_reads(data)
+
+    # the twin's blocks on the reads, carrying what feed_raw carries
+    pend, residual, want_blocks = b"", torch.zeros((2, 0)), []
+    for r in reads:
+        blk, residual = ingest_kernel.ingest_plain(
+            host_u8(r), pend, "S16_LE", residual, os_)
+        pend = ingest_kernel.pend_after(pend, r[-3:], len(r), "S16_LE")
+        want_blocks.append(blk)
+
+    pipe = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+    inner, got_blocks = pipe._feed_planar, []
+
+    def spy(iq, eof, blk):
+        got_blocks.append(iq.cpu())
+        return inner(iq, eof, blk)
+    pipe._feed_planar = spy
+    pinned = [host_u8(r).pin_memory() for r in reads]
+    reset_launches()
+    raw_frames = []
+    for buf in pinned:
+        raw_frames += pipe.feed_raw(buf, "S16_LE")
+    n_ki = ingest_kernel.launches
+    raw_frames += pipe.finish()
+    del pinned
+    if n_ki != len(reads):
+        raise AssertionError(f"feed_raw: KI launched {n_ki} times for "
+                             f"{len(reads)} reads")
+    if len(got_blocks) != len(want_blocks) or not all(
+            g.shape == w.shape and torch.equal(g.view(torch.int32),
+                                               w.view(torch.int32))
+            for g, w in zip(got_blocks, want_blocks)):
+        raise AssertionError("feed_raw: the planar blocks differ from the "
+                             "plain twin's on the same bytes")
+    log(f"feed_raw from pinned memory: {len(reads)} reads (the first 5 "
+        f"bytes short of a block), KI launched {n_ki} times, each planar "
+        f"block {[tuple(b.shape) for b in got_blocks]} bit for bit the "
+        f"plain twin's")
+
+    class Reads:
+        def __init__(self):
+            self.left = list(reads)
+
+        def read(self, n=-1):
+            return self.left.pop(0) if self.left else b""
+    host = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+    host_frames = []
+    for blk in iqfile.iq_blocks(Reads(), "S16_LE", bufsize=4 * len(data)):
+        host_frames += host.feed(blk)
+    host_frames += host.finish()
+    d_nf = compare_frames(host_frames, raw_frames,
+                          "feed_raw vs iq_blocks + feed on the same reads")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.cs16")
+        with open(path, "wb") as f:
+            f.write(data)
+
+        class Collect:
+            def __init__(self):
+                self.frames = []
+
+            def process_all(self, frames):
+                self.frames.extend(frames)
+
+        def run_file():
+            p = VDL2Pipeline(freqs, int(CENTER), fs, os_, device="cuda")
+            dec = Collect()
+            with open(path, "rb") as fh:
+                iqfile.feed_iq_file(p, dec, fh, "S16_LE",
+                                    read_bytes=4 * WIDEBAND_BLOCK)
+            torch.cuda.synchronize()
+            return p, dec.frames
+        run_file()                               # warm-up
+        _, l2_kernel = l2_modules()
+        kc, _ = front_modules()
+        reset_launches()
+        t0 = time.perf_counter()
+        pipe, frames = run_file()
+        dt = time.perf_counter() - t0
+        launches = {"sync_error_metric": sync_kernel.launches,
+                    "find_candidates": kc.launches,
+                    "ingest": ingest_kernel.launches,
+                    **gate_kernel.launches, **l2_kernel.launches}
+    if launches != want_launches:
+        raise AssertionError(f"feed_iq_file launched {launches}, expected "
+                             f"{want_launches}")
+    got = {(bytes(f.frame), f.metadata.freq) for f in frames}
+    missing = [w for w in want if w not in got]
+    if missing:
+        raise AssertionError(f"feed_iq_file: {len(missing)} of {len(want)} "
+                             f"payloads missing")
+    recs = list(pipe.span_log.blocks)
+    span_ms = {name: [round(b.ms(name), 3) for b in recs
+                      if b.ms(name) is not None]
+               for name in ("read", "feed_raw", "feed.h2d")}
+    rt = len(data) // 4 / dt / fs
+    log(f"feed_iq_file: {len(want)}/{len(want)} payloads decoded "
+        f"({len(frames)} frames), kernel launches {launches}; {dt:.4f} s "
+        f"with the reads from the page cache and finish() -> realtime "
+        f"factor {rt:.3f}; spans ms a block {span_ms}; input counts "
+        f"{pipe.span_log.counts}")
+
+    B = 4 * WIDEBAND_BLOCK
+    raw_dev = host_u8(data[:B]).cuda()
+    empty = torch.zeros((2, 0), device="cuda")
+
+    def call():
+        return ingest_kernel.ingest_cuda(raw_dev, b"", "S16_LE", empty, os_)
+    ms = cuda_ms(call, 50)
+    prof_ms = device_ms(call, 20, "ingest_kernel")
+    plain_ms = cuda_ms(lambda: ingest_kernel.ingest_plain(
+        raw_dev, b"", "S16_LE", empty, os_), 5)
+    pinned = host_u8(data[:B]).pin_memory()
+    h2d_ms = cuda_ms(lambda: raw_dev.copy_(pinned, non_blocking=True), 20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    bound = _bound(WIDEBAND_BLOCK * (4 + 2 * 4),
+                   KI_OPS_PER_VALUE * 2 * WIDEBAND_BLOCK, sms, clock)
+    log(f"KI at a wideband S16_LE block ({WIDEBAND_BLOCK} samples): kernel "
+        f"{ms:.4f} ms (profiler device time {prof_ms} ms), plain {plain_ms:.4f} "
+        f"ms, bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}; bytes "
+        f"{bound['bytes_ms']:.6f}, issue {bound['ops_ms']:.6f}); "
+        f"{bound['bound_ms'] / (prof_ms or ms):.3f} of the bound; the "
+        f"block's {B} bytes pinned to the card {h2d_ms:.4f} ms")
+    return {"launches": launches, "seconds": dt, "realtime_factor": rt,
+            "frames": len(frames), "spans_ms": span_ms, "d_nf_db": d_nf,
+            "counts": dict(pipe.span_log.counts), "ms": ms,
+            "profiler_ms": prof_ms, "plain_ms": plain_ms, "h2d_ms": h2d_ms,
+            **bound}
+
+
 def mesh_devices(shape: tuple[int, int]) -> list[str]:
     """Distinct GPUs for the shards where there are enough, else cuda:0
     repeated."""
@@ -1793,6 +2021,7 @@ def mesh_phase(scene, single_frames) -> dict:
             dt = time.perf_counter() - t0
             launches = {"sync_error_metric": sync_kernel.launches,
                         "find_candidates": kc.launches,
+                        "ingest": ingest_kernel.launches,
                         **gate_kernel.launches, **l2_kernel.launches}
         finally:
             for r in restore:
@@ -1806,6 +2035,7 @@ def mesh_phase(scene, single_frames) -> dict:
                   "find_candidates": n_shards * WIDEBAND_BLOCKS + 1,
                   "gate": WIDEBAND_BLOCKS + 1,
                   "nf_track": WIDEBAND_BLOCKS + 1, "l2_front": 0,
+                  "ingest": 0,
                   **{k: WIDEBAND_BLOCKS + 1 for k in L2_MESH_KERNELS},
                   **{k: 0 for k in L2_STANDALONE}}
         if launches != expect:
@@ -1967,6 +2197,7 @@ def reset_launches() -> None:
     kc, _ = front_modules()
     sync_kernel.launches = 0
     kc.launches = 0
+    ingest_kernel.launches = 0
     for k in gate_kernel.launches:
         gate_kernel.launches[k] = 0
     for k in l2_kernel.launches:
@@ -2036,6 +2267,7 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
         dt = time.perf_counter() - t0
         launches = {"sync_error_metric": sync_kernel.launches,
                     "find_candidates": kc.launches,
+                    "ingest": ingest_kernel.launches,
                     **gate_kernel.launches, **l2_kernel.launches}
         native_calls = dict(native.calls)
     finally:
@@ -2271,13 +2503,15 @@ def main() -> int:
     launches, gated_frames, wb = wideband_path(scene, device_gate=True)
     # each kernel once a block and once at EOF
     want = {"sync_error_metric": WIDEBAND_BLOCKS + 1,
-            "find_candidates": WIDEBAND_BLOCKS + 1,
+            "find_candidates": WIDEBAND_BLOCKS + 1, "ingest": 0,
             "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1,
             **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
             "l2_header": 0, **{k: 0 for k in L2_STANDALONE}}
     if launches != want:
         raise AssertionError(f"the gated wideband path launched {launches}, "
                              f"expected {want}")
+    # the file path: the same blocks, each after one KI launch
+    file_path = file_path_phase(scene, dict(want, ingest=WIDEBAND_BLOCKS))
     _, host_frames, wb_host = wideband_path(scene, device_gate=False)
     d_nf = compare_frames(gated_frames, host_frames, "host-gated vs gated")
     cli = cli_on_card()
@@ -2323,12 +2557,17 @@ def main() -> int:
         entry("rs_verify", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/rs_tpu.py:252", l2["times"]["rs_verify"],
               0),
+        # KI replaces the JAX package's host dequantize (no TPU kernel);
+        # its launches are the file path's, compared bit for bit
+        {**entry("ingest", "dumpvdl2_tpu_torch/csrc/ingest.cu",
+                 "dumpvdl2_tpu/io/iqfile.py:19", file_path, 0.0),
+         "launches": file_path["launches"]["ingest"]},
     ]}
     log(json.dumps({"wideband_gated": wb, "wideband_host_gated": wb_host,
                     "modes_max_d_nf_db": d_nf, "vector": vec, "cli": cli,
                     "host_l2": host_l2, "mesh": mesh,
                     "multihost": multi, "profile": prof,
-                    "host_library": host_lib,
+                    "host_library": host_lib, "file_path": file_path,
                     "k1": k1_main, "g1": g1, "g2": g2, "l2": l2,
                     "card": card}))
     print(json.dumps(kernels_line), flush=True)

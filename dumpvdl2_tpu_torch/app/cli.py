@@ -194,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     gt = p.add_argument_group("device options")
     gt.add_argument("--block-size", type=int, default=1 << 20,
-                    help="IQ samples per processing block")
+                    help="bytes a read of --iq-file, each read one "
+                         "processing block (bytes / 4 S16_LE or bytes / 2 "
+                         "U8 IQ samples)")
     gt.add_argument("--platform", choices=sorted(PLATFORMS), default="gpu",
                     help="torch device: gpu/cuda (default) or cpu")
     gt.add_argument("--profile", default=None, metavar="DIR",
@@ -479,12 +481,9 @@ def run_iq_file(args: argparse.Namespace, decoder: FrameDecoder,
     pipe = _make_pipeline(args, device)
     fh = sys.stdin.buffer if args.iq_file == "-" else open(args.iq_file, "rb")
     try:
-        for blk in iqfile.iq_blocks(fh, args.sample_format,
-                                    bufsize=args.block_size):
-            if exit_requested():
-                break
-            decoder.process_all(pipe.feed(blk))
-        decoder.process_all(pipe.finish())
+        iqfile.feed_iq_file(pipe, decoder, fh, args.sample_format,
+                            read_bytes=args.block_size,
+                            stop=exit_requested)
     finally:
         if fh is not sys.stdin.buffer:
             fh.close()

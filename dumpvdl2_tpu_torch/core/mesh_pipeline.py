@@ -45,6 +45,8 @@ import torch
 from ..constants import SPS, SYNC_THRESHOLD
 from ..dsp.demod import Candidates, find_and_slice
 from ..dsp.frontend import bandpass_channelize, to_planar
+from ..dsp.ingest_kernel import pair_bytes
+from ..io.iqfile import dequantize_block
 from ..parallel.mesh import make_mesh
 from ..parallel.sharded import (BACK_HALO, ShardedState, init_sharded_state,
                                 make_sharded_step)
@@ -113,6 +115,21 @@ class MeshPipeline(VDL2Pipeline):
         """Process one wideband complex64 block (any length)."""
         return self.feed_planar(
             to_planar(np.ascontiguousarray(iq, dtype=np.complex64)), eof=eof)
+
+    def feed_raw(self, buf, sample_format: str, copied=None, read=None):
+        """feed() for raw interleaved samples, as VDL2Pipeline.feed_raw
+        takes them.  The raw tail of the re-reads lives on the host, so
+        the mesh dequantizes there as io/iqfile.py::iq_blocks does (the
+        partial sample pair at the buffer's end kept for the next call)
+        and feeds the complex block; ``buf`` is read before the call
+        returns, so ``copied`` is not recorded, and ``read`` is not
+        kept."""
+        data = self._raw_pend + np.asarray(buf).tobytes()
+        usable = len(data) - len(data) % pair_bytes(sample_format)
+        self._raw_pend = data[usable:]
+        if not usable:
+            return []
+        return self.feed(dequantize_block(data[:usable], sample_format))
 
     def feed_planar(self, iq, eof: bool = False):
         """feed() for a planar (2, N) float32 block, any N: a numpy

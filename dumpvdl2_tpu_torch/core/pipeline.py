@@ -51,6 +51,7 @@ from ..constants import (HEADER_LEN, MAG_LP, NF_LP, SPS, SYMBOL_RATE,
 from ..dsp.chebyshev import fir_taps
 from ..dsp.demod import demod_window, find_and_slice, slice_windows
 from ..dsp.frontend import nco_dphi, prepare_taps, to_planar
+from ..dsp import ingest_kernel
 from ..fec import l2_kernel
 from ..fec.l2 import decode_payload, frame_power, l2_decode_batch
 from ..fec.scramble import descramble
@@ -332,6 +333,12 @@ class VDL2Pipeline:
         self.hist_base = 0        # global decimated index of hist[:, 0]
         self.channels = [ChannelState(freq=f) for f in freqs]
         self._residual = np.zeros(0, dtype=np.complex64)
+        # feed_raw's carry: planar samples past the last whole block, on
+        # the device, and the bytes of a partial sample pair
+        self._raw_residual = torch.zeros((2, 0), dtype=torch.float32,
+                                         device=self.device)
+        self._raw_pend = b""
+        self._staging = None      # staging()'s buffers and events
         # device gate: carried state (core/nf_gate.py), the block base
         # it is relative to, and the (C, K) identity slot -> L2 row map
         self._gate_state: dict | None = None
@@ -736,6 +743,63 @@ class VDL2Pipeline:
         log.close(blk, "feed.h2d")
         frames = self._feed_planar(planar, eof, blk)
         log.close(blk, "feed")
+        return frames
+
+    def staging(self, nbytes: int) -> tuple[list, list]:
+        """Two host buffers of ``nbytes`` for the reads that feed_raw
+        takes (pinned on CUDA), to fill in turn, and on CUDA an event
+        each for feed_raw's ``copied``.  Made on first use and kept while
+        the size holds, so that a stream fed in several calls
+        (io/iqfile.py::feed_iq_file) pins them once."""
+        if self._staging is None or self._staging[0][0].numel() != nbytes:
+            cuda = self.device.type == "cuda"
+            self._staging = (
+                [torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+                 for _ in range(2)],
+                [torch.cuda.Event() if cuda else None for _ in range(2)])
+        return self._staging
+
+    def feed_raw(self, buf, sample_format: str, copied=None,
+                 read=None) -> list[DecodedFrame]:
+        """feed() for raw interleaved samples as a capture file holds
+        them (``U8`` or ``S16_LE``, io/iqfile.py): ``buf`` is a host
+        buffer (a uint8 tensor, ideally pinned, or a numpy array) of any
+        length.  Its bytes go to the device as they are
+        (asynchronously from pinned memory) and kernel KI
+        (dsp/ingest_kernel.py) converts them there, after the samples
+        and the partial sample pair that earlier calls left over, into
+        the planar block; each value as ``iqfile.dequantize_block``
+        gives it.  ``copied``, a CUDA event, is recorded once the copy
+        has read ``buf``, so the caller may refill it; ``read`` is the
+        (start, end) ``perf_counter_ns`` of the read that filled
+        ``buf``, kept as the record's ``read`` span.  A stream is fed
+        through feed_raw or feed(), not both."""
+        log = self.span_log
+        blk = log.new_block(self.step_ms is not None)
+        if read is not None:
+            log.stamp(blk, "read", *read)
+        log.open(blk, "feed_raw")
+        log.open(blk, "feed.h2d")
+        host = torch.as_tensor(buf).reshape(-1).view(torch.uint8)
+        n = host.numel()
+        pend = self._raw_pend
+        self._raw_pend = ingest_kernel.pend_after(
+            pend, host[max(n - 3, 0):].numpy().tobytes(), n, sample_format)
+        if self.device.type == "cuda":
+            log.event(blk, "ingest")
+            raw = torch.empty(n, dtype=torch.uint8, device=self.device)
+            raw.copy_(host, non_blocking=True)
+            if copied is not None:
+                copied.record()
+        else:
+            raw = host
+        planar, self._raw_residual = ingest_kernel.ingest(
+            raw, pend, sample_format, self._raw_residual, self.oversample)
+        del raw
+        log.event(blk, "ingested")
+        log.close(blk, "feed.h2d")
+        frames = self._feed_planar(planar, False, blk)
+        log.close(blk, "feed_raw")
         return frames
 
     def feed_planar(self, iq, eof: bool = False) -> list[DecodedFrame]:

@@ -3,20 +3,23 @@ and fetch threads, the block's device time by step, and the frames its
 drain returned.
 
 A :class:`SpanLog` belongs to one ``VDL2Pipeline`` and is always on, at
-block granularity.  Each block (a ``feed``/``feed_planar`` call that
-dispatched one, or a ``finish()``, whose EOF flush gets a record of its
-own) has a :class:`Block` record in a bounded ring.  A record holds each
-span of :data:`PARENT` at most once, as two ``perf_counter_ns`` stamps
-in slots made with the record (:meth:`SpanLog.open`,
-:meth:`SpanLog.close`); :attr:`Block.spans` gives them as :class:`Span`
-tuples.  A span's parent is fixed by its name, but for a drain's or a
-finish's, which runs inside a later call: the record keeps that call
-as ``outer``, (sequence number, name).
+block granularity.  Each block (a ``feed``/``feed_raw``/``feed_planar``
+call that dispatched one, or a ``finish()``, whose EOF flush gets a
+record of its own) has a :class:`Block` record in a bounded ring.  A
+record holds each span of :data:`PARENT` at most once, as two
+``perf_counter_ns`` stamps in slots made with the record
+(:meth:`SpanLog.open`, :meth:`SpanLog.close`; a ``feed_raw`` record's
+``read``, the file read that filled its buffer, by
+:meth:`SpanLog.stamp` after the fact); :attr:`Block.spans` gives them as
+:class:`Span` tuples.  A span's parent is fixed by its name, but for a
+drain's or a finish's, which runs inside a later call: the record keeps
+that call as ``outer``, (sequence number, name).
 
 On CUDA the log records timing events in stream order at span
 boundaries (detect's start, each step's end, and the fetch's start on
 the fetch thread, or for a graphed block the main thread's enqueue of
-its fetch copy), on one record in EVENT_EVERY and on every record of
+its fetch copy; for ``feed_raw``, before the raw copy and after the
+ingest kernel), on one record in EVENT_EVERY and on every record of
 a measuring call (``step_ms``, a profiler);
 :meth:`SpanLog.fetched` turns them into milliseconds on the fetch
 thread once its copy is done: the copy waits for the stream, so every
@@ -57,9 +60,12 @@ EVENT_EVERY = 15
 MAIN, FETCH = "main", "fetch"
 STEPS = ("detect", "l2", "gate")     # event names of dispatch's steps
 # Every span a record can hold, with its parent in the same record:
-# feed_planar's only where feed() called it; a drain's or a finish's is
-# the record's ``outer``.  ``fetch`` runs on the fetch thread.
-PARENT = {"feed": None, "feed.h2d": "feed", "feed_planar": "feed",
+# feed.h2d's and feed_planar's the feed() or feed_raw() call that ran
+# them (:data:`FEEDS`), if any; a drain's or a finish's is the record's
+# ``outer``.  ``fetch`` runs on the fetch thread; ``read`` precedes
+# feed_raw.
+PARENT = {"read": None, "feed": None, "feed_raw": None,
+          "feed.h2d": "feed", "feed_planar": "feed",
           "dispatch": "feed_planar", "detect": "dispatch",
           "l2": "dispatch", "gate": "dispatch", "fetch": None,
           "drain": None, "drain.wait": "drain", "drain.verdicts": "drain",
@@ -69,6 +75,7 @@ _STAMPS = 2 * len(SLOT)
 _CALLS = ("feed_planar", "finish")    # the calls a drain or finish runs in
 _OUTER = ("drain", "finish")
 _EVENT_AT_OPEN = {"detect": "start", "fetch": "fetch"}  # and STEPS at close
+FEEDS = ("feed", "feed_raw")          # the calls that hold feed.h2d
 
 Span = namedtuple("Span", "name seq parent thread start end")
 Span.__doc__ = """A host span: ``name``, the block's sequence number
@@ -102,14 +109,15 @@ class Block:
     a profiler (``profiled``), whether its dispatch replayed the steps'
     CUDA graphs (``graphed``, core/graphs.py), and on CUDA the
     milliseconds of the device's timeline between its events: before
-    and after each step (``detect_dev``, ``l2_dev``, ``gate_dev``) and
-    from its last step to its fetch's first operation
-    (``fetch_lag_dev``); None where not measured (``timed``: the record
-    gets events)."""
+    and after each step (``detect_dev``, ``l2_dev``, ``gate_dev``), from
+    its last step to its fetch's first operation (``fetch_lag_dev``),
+    and from the start of feed_raw's copy to the end of its ingest
+    kernel (``ingest_dev``); None where not measured (``timed``: the
+    record gets events)."""
 
     __slots__ = ("seq", "t", "outer", "frames", "fetch_bytes", "synced",
                  "profiled", "graphed", "detect_dev", "l2_dev", "gate_dev",
-                 "fetch_lag_dev", "events")
+                 "fetch_lag_dev", "ingest_dev", "events")
 
     def __init__(self, seq: int, synced: bool, profiled: bool,
                  timed: bool):
@@ -118,7 +126,7 @@ class Block:
         self.t = [None] * _STAMPS
         self.outer = self.frames = self.fetch_bytes = None
         self.detect_dev = self.l2_dev = self.gate_dev = None
-        self.fetch_lag_dev = None
+        self.fetch_lag_dev = self.ingest_dev = None
         self.events = {} if timed else None
 
     def span(self, name: str, thread: str = MAIN):
@@ -131,8 +139,9 @@ class Block:
             return None
         if name in _OUTER:
             parent = self.outer
-        elif name == "feed_planar" and self.t[SLOT["feed"]] is None:
-            parent = None
+        elif name in ("feed.h2d", "feed_planar"):
+            feeds = [f for f in FEEDS if self.t[SLOT[f]] is not None]
+            parent = (self.seq, feeds[0]) if feeds else None
         else:
             parent = PARENT[name] and (self.seq, PARENT[name])
         return Span(name, self.seq, parent, thread, start, end)
@@ -164,14 +173,18 @@ class Block:
                 setattr(self, step + "_dev", prev.elapsed_time(e))
                 prev = e
         self.fetch_lag_dev = prev.elapsed_time(fetch)
+        if "ingested" in ev:
+            self.ingest_dev = ev["ingest"].elapsed_time(ev["ingested"])
         self.events = None
         return True
 
 
 class SpanLog:
     """The block records of one pipeline on ``device``, the newest
-    RING_BLOCKS kept, and the clock anchor ``anchor`` =
-    (perf_counter_ns, time_ns) taken together at the start."""
+    RING_BLOCKS kept, the clock anchor ``anchor`` = (perf_counter_ns,
+    time_ns) taken together at the start, and ``counts`` of a file's
+    input (io/iqfile.py::feed_iq_file): ``read_bytes`` read, and
+    ``staging_waits``, reads that waited for a staging buffer's copy."""
 
     def __init__(self, device: torch.device):
         global _latest
@@ -187,6 +200,7 @@ class SpanLog:
         self._streams: dict = {}      # current-stream key -> Stream
         self._cuda = device.type == "cuda"
         self._index = None
+        self.counts = {"read_bytes": 0, "staging_waits": 0}
         if self._cuda:
             self._index = device.index if device.index is not None \
                 else torch.cuda.current_device()
@@ -258,8 +272,21 @@ class SpanLog:
         thread's stream, as for a graphed block (core/pipeline.py): the
         ``fetch`` event goes here, in stream order before the copy, and
         the fetch thread's span records none."""
+        self.event(blk, "fetch")
+
+    def event(self, blk: Block, name: str) -> None:
+        """A timing event ``name`` of ``blk`` in stream order now, on a
+        record that gets events (feed_raw's ``ingest`` before its copy
+        and ``ingested`` after its kernel)."""
         if blk.events is not None and self._cuda:
-            self._event(blk, "fetch")
+            self._event(blk, name)
+
+    def stamp(self, blk: Block, name: str, start: int, end: int) -> None:
+        """Span ``name`` of ``blk`` from ``start`` to ``end``
+        (perf_counter_ns), for work that ran before the record was made
+        (feed_raw's ``read``); no profiler range."""
+        i = SLOT[name]
+        blk.t[i], blk.t[i + 1] = start, end
 
     def add(self, blk: Block, name: str, start: int) -> None:
         """Span ``name`` of ``blk`` from ``start`` to now, for a span
