@@ -56,6 +56,14 @@ Phases (each must pass; any failure exits non-zero):
    wrapper-call times, its plain version's and its bound at the sliced
    block's and the flush's shapes (KC at the block's), L2P beside
    L2D + RS;
+4b. KP (the polyphase filter bank, csrc/pfb.cu) against its plain twin
+   on the card, bit for bit with one launch a call, at the wideband
+   block (256 channels, oversample 80) and the live cell's two block
+   lengths (8 channels, oversample 20, 1 048 560 and 1 048 580
+   samples), n0 an int and a 0-dim tensor, across the NCO index's wrap;
+   its gap to the GEMM formulation over the GEMM's RMS; KP's profiler
+   time, a wrapper call's, the twin's, the GEMM's (``library_ms``) and
+   its bound (``kp_bound``);
 5. correctness vector: 8 channels at oversample 20 (2.1 Msps), a strong,
    a marginal and a near-cap (1990-octet) burst, fed through
    VDL2Pipeline(device="cuda").feed(..., eof=True); every frame must come
@@ -63,13 +71,14 @@ Phases (each must pass; any failure exits non-zero):
 6. wideband main path, device-gated (the default): 256 channels at
    oversample 80 (8.4 Msps), six device-resident blocks of 4 194 240
    samples with 24 bursts on stride-4 channels through feed_planar +
-   finish; all 24 payloads must decode; K1, KC, G1, G2, the L2 front
-   and L2P must each have launched 7 times on that run (6 blocks +
-   EOF, blocks 3-6 as replays of the steps' CUDA graphs, captured
-   once), L2H, L2D and RS never, no plain version of a gate or L2
-   kernel may have run, and no plain detect or L2-front function
-   (candidates_plain, find_and_slice, slice_windows, demod_window,
-   l2_front_plain, _slot_compaction, compact_rows, the L2H call); the native
+   finish; all 24 payloads must decode; KP 6 times (a block), K1, KC,
+   G1, G2, the L2 front and L2P must each have launched 7 times on that
+   run (6 blocks + EOF, blocks 3-6 as replays of the steps' CUDA graphs,
+   captured once), L2H, L2D and RS never, no plain version of a gate or
+   L2 kernel may have run, and no plain detect or L2-front function
+   (pfb_plain, gemm_channelize, candidates_plain, find_and_slice,
+   slice_windows, demod_window, l2_front_plain, _slot_compaction,
+   compact_rows, the L2H call); the native
    library's unstuffing must have been called on that run and the
    Python spec (_frames_py) never.  Prints the sustained ingest rate,
    the realtime factor, the per-block step breakdown, the finish() time
@@ -116,9 +125,11 @@ Phases (each must pass; any failure exits non-zero):
    (2, 2), the shards on distinct GPUs where there are enough, else on
    cuda:0 repeated: 24/24 payloads, the
    frames equal to the single-device gated run's (bytes, freq and idx
-   exact, nf_pwr_dbfs within 1e-4 dB); K1 and KC launched once per
-   shard a block plus once at EOF, G1, G2, L2H and L2P once a block
-   plus once at EOF, the front, L2D and RS never, no plain version run.  Realtime factor, peak memory, the blocks re-read
+   exact, nf_pwr_dbfs within 1e-4 dB); KP once a channelizer call (a
+   shard a block, and a block re-read from the raw tail), K1 and KC
+   launched once per shard a block plus once at EOF, G1, G2, L2H and
+   L2P once a block plus once at EOF, the front, L2D and RS never, no
+   plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
 12. the multi-process path (parallel/multihost.py): ``init_distributed()``
    is a no-op without WORLD_SIZE; two ranks of
@@ -174,7 +185,9 @@ from dumpvdl2_tpu_torch.constants import (HEADER_LEN, SPS, SYMBOL_RATE,
 from dumpvdl2_tpu_torch.core import gate_kernel
 from dumpvdl2_tpu_torch.core.device import process_block_detect
 from dumpvdl2_tpu_torch.core.pipeline import DEFAULT_HALO, VDL2Pipeline
-from dumpvdl2_tpu_torch.dsp import ingest_kernel, sync_kernel
+from dumpvdl2_tpu_torch.dsp import (frontend, ingest_kernel, pfb_kernel,
+                                    sync_kernel)
+from dumpvdl2_tpu_torch.dsp.chebyshev import fir_taps
 from dumpvdl2_tpu_torch.io import iqfile, rawframes
 from dumpvdl2_tpu_torch.link import crc, unstuff
 from dumpvdl2_tpu_torch.sim import (WIDEBAND_BLOCK, WIDEBAND_BLOCKS,
@@ -262,7 +275,9 @@ L2_PLAIN = ("l2_header_plain", "l2_payload_plain", "l2_deinterleave_plain",
 # The plain detect and L2-front functions: none may run on the card's
 # single-device main path (the mesh still slices its candidates with
 # find_and_slice and compacts them with _slot_compaction, compact_rows).
-FRONT_PLAIN = {"candidates_kernel": ("candidates_plain",),
+FRONT_PLAIN = {"pfb_kernel": ("pfb_plain",),
+               "frontend": ("gemm_channelize",),
+               "candidates_kernel": ("candidates_plain",),
                "demod": ("find_and_slice", "slice_windows", "demod_window"),
                "pipeline": ("find_and_slice", "l2_front_plain",
                             "_slot_compaction"),
@@ -1818,16 +1833,11 @@ def file_path_phase(scene, want_launches: dict) -> dict:
             torch.cuda.synchronize()
             return p, dec.frames
         run_file()                               # warm-up
-        _, l2_kernel = l2_modules()
-        kc, _ = front_modules()
         reset_launches()
         t0 = time.perf_counter()
         pipe, frames = run_file()
         dt = time.perf_counter() - t0
-        launches = {"sync_error_metric": sync_kernel.launches,
-                    "find_candidates": kc.launches,
-                    "ingest": ingest_kernel.launches,
-                    **gate_kernel.launches, **l2_kernel.launches}
+        launches = launch_counts()
     if launches != want_launches:
         raise AssertionError(f"feed_iq_file launched {launches}, expected "
                              f"{want_launches}")
@@ -1874,6 +1884,139 @@ def file_path_phase(scene, want_launches: dict) -> dict:
             "counts": dict(pipe.span_log.counts), "ms": ms,
             "profiler_ms": prof_ms, "plain_ms": plain_ms, "h2d_ms": h2d_ms,
             **bound}
+
+
+# ------------------------------------------------------ detect: KP
+# KP's own instructions: its algorithm as written (direct 2-, 3-, 4-
+# and 7-point DFTs, every one of the K bins though only C are kept),
+# not the least the channelizer needs, so its share of this bound
+# flatters KP.  The fold: a multiply-add a plane a Taylor
+# term a tap (Q K taps an output sample).  A transform term: a
+# multiply-add pair (4) where the twiddle is no quarter turn, a complex
+# add (2) where it is; a twiddle alone, 4 (0 at a quarter turn).  A
+# channel's sample: a complex multiply-add a Taylor term, the angle's
+# product and the rotation's four (cosf and sinf not counted).  It
+# issues more instructions than it moves bytes.
+KP_OPS_CMUL = 4
+KP_OPS_CADD = 2
+KP_OPS_ROTATE = 5
+
+
+def kp_dft_ops(R: int, K: int) -> int:
+    """KP's instructions for one R-point DFT as pfb_kernel._dft composes
+    it."""
+    def quarter(i):
+        return (4 * (i % K)) % K == 0
+    if R in pfb_kernel.COMPOSITE:
+        R1, R2 = pfb_kernel.COMPOSITE[R]
+        tw = sum(0 if quarter(b * k1 * (K // R)) else KP_OPS_CMUL
+                 for b in range(R2) for k1 in range(R1))
+        return R2 * kp_dft_ops(R1, K) + tw + R1 * kp_dft_ops(R2, K)
+    return sum(KP_OPS_CADD if quarter((m * k % R) * (K // R))
+               else KP_OPS_CMUL for k in range(R) for m in range(1, R))
+
+
+def kp_bound(plan, N: int, C: int, sms: int, clock_hz: float) -> dict:
+    """Least time for KP on an N-sample block of C channels: its bytes
+    (read the block and the carry, write dec; the tables are small) and
+    its own instructions (above: not the least the function needs)."""
+    M = N // plan.oversample
+    K, P = plan.K, plan.P
+    transform = (pfb_kernel.ODD * kp_dft_ops(P, K) + K * KP_OPS_CMUL
+                 + P * kp_dft_ops(pfb_kernel.ODD, K)
+                 + (K * KP_OPS_CMUL if plan.phi else 0))
+    per_output = plan.orders * (2 * plan.Q * K + transform)
+    ops = M * per_output + C * M * (KP_OPS_CMUL * plan.orders
+                                    + KP_OPS_ROTATE)
+    nbytes = 4 * (2 * N + 2 * (plan.T - 1) + 2 * C * M)
+    return _bound(nbytes, ops, sms, clock_hz)
+
+
+def kp_shapes() -> list:
+    """KP's main-path shapes: the wideband cell's block (256 channels,
+    oversample 80) and the live cell's two block lengths (8 channels,
+    oversample 20), each channel set tuned at its middle as the CLI
+    tunes it."""
+    out = []
+    for C, os_, lens in ((256, 80, (WIDEBAND_BLOCK,)),
+                         (8, 20, (1_048_560, 1_048_580))):
+        fs = SYMBOL_RATE * SPS * os_
+        freqs = [int(CENTER) - 25_000 * i for i in range(C)]
+        cf = (min(freqs) + max(freqs)) // 2
+        taps = torch.as_tensor(frontend.prepare_taps(fir_taps(fs), os_),
+                               device="cuda")
+        dphi = torch.as_tensor(np.array(
+            [frontend.nco_dphi(cf, f, fs) for f in freqs], np.uint32)
+            .astype(np.int64), device="cuda")
+        for N in lens:
+            out.append((f"{C} channels, os {os_}, N {N}", taps, dphi, os_,
+                        N))
+    return out
+
+
+def kp_phase(floor_ms: float) -> dict:
+    """KP against its plain twin on the card at the main-path shapes,
+    bit for bit, one launch a call, with n0 an int and a 0-dim tensor
+    and across the NCO index's wrap at 2^24; the GEMM formulation's
+    answer beside it; KP's profiler time, a wrapper call's, the twin's
+    and the GEMM's (its library yardstick), and its bound."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    res = {}
+    for label, taps, dphi, os_, N in kp_shapes():
+        plan = pfb_kernel.plan_for(taps, dphi, os_)
+        if plan is None:
+            raise AssertionError(f"KP {label}: no plan for a channel set "
+                                 f"on the grid")
+        gen = torch.Generator(device="cuda").manual_seed(N)
+        iq = torch.randn((2, N), generator=gen, device="cuda")
+        carry = torch.randn((2, plan.T - 1), generator=gen, device="cuda")
+        gemm_err = 0.0
+        for n0 in (0, 123_457, (1 << 24) - N // 3):
+            for arg in (n0, torch.tensor(n0, device="cuda")):
+                want = pfb_kernel.pfb_plain(iq, carry, plan, arg)
+                before = pfb_kernel.launches
+                got = pfb_kernel.pfb_cuda(iq, carry, plan, arg)
+                torch.cuda.synchronize()
+                if pfb_kernel.launches != before + 1:
+                    raise AssertionError(f"KP {label}: "
+                                         f"{pfb_kernel.launches - before} "
+                                         f"launches for one call")
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    d = (got - want).abs().max().item()
+                    raise AssertionError(
+                        f"KP {label}, n0 {n0}: differs from its twin "
+                        f"(values equal: {torch.equal(got, want)}, largest "
+                        f"gap {d})")
+            gemm, _ = frontend.gemm_channelize(iq, taps, dphi, n0, carry,
+                                               os_)
+            rms = gemm.pow(2).mean().sqrt().item()
+            gemm_err = max(gemm_err, (got - gemm).abs().max().item() / rms)
+
+        def call():
+            return pfb_kernel.pfb_cuda(iq, carry, plan, 0)
+        t = {"call_ms": cuda_ms(call, 50)}
+        ms = device_ms(call, 20, "pfb_kernel")
+        t.update(ms=t["call_ms"] if ms is None else ms,
+                 ms_from="events" if ms is None else "profiler",
+                 plain_ms=cuda_ms(
+                     lambda: pfb_kernel.pfb_plain(iq, carry, plan, 0), 2),
+                 library_ms=cuda_ms(lambda: frontend.gemm_channelize(
+                     iq, taps, dphi, 0, carry, os_), 5),
+                 shape=[2, dphi.shape[0], N // os_],
+                 gemm_max_err_over_rms=gemm_err, orders=plan.orders,
+                 K=plan.K, phi=plan.phi, truncation=plan.truncation,
+                 **kp_bound(plan, N, dphi.shape[0], sms, clock))
+        log_time("KP", label, t, floor_ms)
+        log(f"KP {label}: bit for bit its twin's, n0 an int and a tensor, "
+            f"across the wrap; K {plan.K}, phi {plan.phi}, {plan.orders} "
+            f"Taylor terms (remainder bound {plan.truncation:.3g}); the "
+            f"GEMM's answer within {gemm_err:.3g} of its RMS; the GEMM "
+            f"{t['library_ms']:.4f} ms")
+        res[label] = t
+        del iq, carry
+    return res
 
 
 def mesh_devices(shape: tuple[int, int]) -> list[str]:
@@ -1989,6 +2132,8 @@ def mesh_phase(scene, single_frames) -> dict:
     wide grids' plain G1 runs here, after the single-device phases, so
     that its thousands of small launches and allocations come after the
     single-device timings, as in earlier versions of this script.)"""
+    from dumpvdl2_tpu_torch.core import mesh_pipeline
+    from dumpvdl2_tpu_torch.parallel import sharded
     _, l2_kernel = l2_modules()
     kc, _ = front_modules()
     for k in (128, 256, 512):
@@ -2009,20 +2154,23 @@ def mesh_phase(scene, single_frames) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         plain_calls: dict = {}
+        channelized: dict = {}
         restore = [count_calls(gate_kernel, GATE_PLAIN, plain_calls),
                    count_calls(l2_kernel, L2_PLAIN, plain_calls),
                    count_calls(sync_kernel, ("sync_error_metric_plain",),
                                plain_calls),
-                   count_calls(kc, ("candidates_plain",), plain_calls)]
+                   count_calls(kc, ("candidates_plain",), plain_calls),
+                   count_calls(pfb_kernel, ("pfb_plain",), plain_calls),
+                   count_calls(mesh_pipeline, ("bandpass_channelize",),
+                               channelized),
+                   count_calls(sharded, ("bandpass_channelize",),
+                               channelized)]
         try:
             reset_launches()
             t0 = time.perf_counter()
             frames, rereads = run_mesh(scene, shape)
             dt = time.perf_counter() - t0
-            launches = {"sync_error_metric": sync_kernel.launches,
-                        "find_candidates": kc.launches,
-                        "ingest": ingest_kernel.launches,
-                        **gate_kernel.launches, **l2_kernel.launches}
+            launches = launch_counts()
         finally:
             for r in restore:
                 r()
@@ -2031,14 +2179,18 @@ def mesh_phase(scene, single_frames) -> dict:
         if any(plain_calls.values()):
             raise AssertionError(f"{label}: plain versions ran on the card: "
                                  f"{plain_calls}")
-        expect = {"sync_error_metric": n_shards * WIDEBAND_BLOCKS + 1,
+        # KP: every channelizer call (a shard a block, and a block
+        # re-read from the raw tail where the tail holds the taps)
+        expect = {"pfb": sum(channelized.values()),
+                  "sync_error_metric": n_shards * WIDEBAND_BLOCKS + 1,
                   "find_candidates": n_shards * WIDEBAND_BLOCKS + 1,
                   "gate": WIDEBAND_BLOCKS + 1,
                   "nf_track": WIDEBAND_BLOCKS + 1, "l2_front": 0,
                   "ingest": 0,
                   **{k: WIDEBAND_BLOCKS + 1 for k in L2_MESH_KERNELS},
                   **{k: 0 for k in L2_STANDALONE}}
-        if launches != expect:
+        if launches != expect \
+                or expect["pfb"] < n_shards * WIDEBAND_BLOCKS:
             raise AssertionError(f"{label} launched {launches}, expected "
                                  f"{expect}")
         got = {(bytes(f.frame), f.metadata.freq) for f in frames}
@@ -2192,9 +2344,21 @@ def profile_phase() -> dict:
     return {"records": recs, "kernels_by_stage": by_stage}
 
 
+def launch_counts() -> dict:
+    """The kernel wrappers' launches by kernel."""
+    _, l2_kernel = l2_modules()
+    kc, _ = front_modules()
+    return {"pfb": pfb_kernel.launches,
+            "sync_error_metric": sync_kernel.launches,
+            "find_candidates": kc.launches,
+            "ingest": ingest_kernel.launches,
+            **gate_kernel.launches, **l2_kernel.launches}
+
+
 def reset_launches() -> None:
     _, l2_kernel = l2_modules()
     kc, _ = front_modules()
+    pfb_kernel.launches = 0
     sync_kernel.launches = 0
     kc.launches = 0
     ingest_kernel.launches = 0
@@ -2241,7 +2405,8 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
     kc, _ = front_modules()
     from dumpvdl2_tpu_torch.core import pipeline
     from dumpvdl2_tpu_torch.dsp import demod
-    front_mods = {"candidates_kernel": kc, "demod": demod,
+    front_mods = {"pfb_kernel": pfb_kernel, "frontend": frontend,
+                  "candidates_kernel": kc, "demod": demod,
                   "pipeline": pipeline, "l2_kernel": l2_kernel,
                   "l2_step": l2_step}
     freqs, fs, os_, sig, want, _ = scene
@@ -2265,10 +2430,7 @@ def wideband_path(scene, device_gate: bool) -> tuple[dict, list, dict]:
         t0 = time.perf_counter()
         frames = run_wideband(freqs, fs, os_, sig, device_gate=device_gate)
         dt = time.perf_counter() - t0
-        launches = {"sync_error_metric": sync_kernel.launches,
-                    "find_candidates": kc.launches,
-                    "ingest": ingest_kernel.launches,
-                    **gate_kernel.launches, **l2_kernel.launches}
+        launches = launch_counts()
         native_calls = dict(native.calls)
     finally:
         for r in restore:
@@ -2498,11 +2660,13 @@ def main() -> int:
     for name, t in (("K1", k1_main), ("G1", g1), ("G2", g2)):
         log(f"{name}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.6f} "
             f"ms, launch floor {floor:.4f} ms")
+    kp = kp_phase(floor)
 
     vec = correctness_vector()
     launches, gated_frames, wb = wideband_path(scene, device_gate=True)
     # each kernel once a block and once at EOF
-    want = {"sync_error_metric": WIDEBAND_BLOCKS + 1,
+    want = {"pfb": WIDEBAND_BLOCKS,
+            "sync_error_metric": WIDEBAND_BLOCKS + 1,
             "find_candidates": WIDEBAND_BLOCKS + 1, "ingest": 0,
             "gate": WIDEBAND_BLOCKS + 1, "nf_track": WIDEBAND_BLOCKS + 1,
             **{k: WIDEBAND_BLOCKS + 1 for k in L2_KERNELS},
@@ -2528,7 +2692,14 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None}
 
+    kp_main = next(iter(kp.values()))            # the wideband block
     kernels_line = {"kernels": [
+        # KP replaces the JAX package's im2col GEMM (no TPU kernel); its
+        # library yardstick is the port's own GEMM formulation
+        {**entry("pfb", "dumpvdl2_tpu_torch/csrc/pfb.cu",
+                 "dumpvdl2_tpu/dsp/frontend.py:bandpass_channelize",
+                 kp_main, kp_main["gemm_max_err_over_rms"]),
+         "library_ms": kp_main["library_ms"]},
         entry("sync_error_metric", "dumpvdl2_tpu_torch/csrc/sync_metric.cu",
               "dumpvdl2_tpu/dsp/sync_pallas.py:117", k1_main,
               max([c["max_abs_err"] for c in checks]
@@ -2568,6 +2739,7 @@ def main() -> int:
                     "host_l2": host_l2, "mesh": mesh,
                     "multihost": multi, "profile": prof,
                     "host_library": host_lib, "file_path": file_path,
+                    "kp": kp,
                     "k1": k1_main, "g1": g1, "g2": g2, "l2": l2,
                     "card": card}))
     print(json.dumps(kernels_line), flush=True)

@@ -11,19 +11,20 @@ import torch
 
 from ..constants import SYNC_THRESHOLD
 from ..dsp.demod import find_and_slice, find_candidates
-from ..dsp.frontend import bandpass_channelize
+from ..dsp.frontend import FROM_TAPS, bandpass_channelize
 
 
 def process_block(iq: torch.Tensor, taps: torch.Tensor, dphi: torch.Tensor,
                   n0: int, carry: torch.Tensor, hist: torch.Tensor,
                   oversample: int, halo: int,
                   threshold: float = SYNC_THRESHOLD,
-                  max_candidates: int = 64, max_symbols: int = 5616):
+                  max_candidates: int = 64, max_symbols: int = 5616,
+                  plan=FROM_TAPS):
     """One block through the full-slicing device pipeline.
 
     Args:
       iq: (2, N) planar wideband block.
-      taps/dphi/n0: as in bandpass_channelize.
+      taps/dphi/n0/plan: as in bandpass_channelize.
       carry: (2, T-1) raw wideband tail of the previous block.
       hist: (2, C, H) decimated halo from the previous block.
       halo: halo length to keep for the next block.
@@ -32,7 +33,7 @@ def process_block(iq: torch.Tensor, taps: torch.Tensor, dphi: torch.Tensor,
       of every 3rd fresh decimated sample, (C, ceil(M/3)).
     """
     dec, new_carry = bandpass_channelize(iq, taps, dphi, n0, carry,
-                                         oversample)
+                                         oversample, plan)
     block = torch.cat([hist, dec], dim=2)
     cands = find_and_slice(block, threshold, max_candidates, max_symbols)
     keep = min(halo, block.shape[2])
@@ -57,14 +58,15 @@ def process_block_detect(iq: torch.Tensor, taps: torch.Tensor,
                          hist: torch.Tensor, oversample: int, halo: int,
                          threshold: float = SYNC_THRESHOLD,
                          max_candidates: int = 64,
-                         max_symbols: int = 5616, graph=None):
+                         max_symbols: int = 5616, graph=None,
+                         plan=FROM_TAPS):
     """process_block without the symbol slicing (device-L2 path).
 
     Returns ``(dets, phases, pwr, new_hist, new_carry, pwr3)``: the
     decimated block's phase and power planes (halo + fresh) stay on the
     device so the compacted L2 step (core/pipeline.l2_sliced) slices
     windows for the real candidates only.  ``n0`` is an int or a 0-dim
-    tensor (bandpass_channelize).  ``graph``, where given, is this step
+    tensor, and ``plan`` the channelizer's (bandpass_channelize).  ``graph``, where given, is this step
     captured on these very tensors (core/graphs.py): the call replays
     it and returns copies of the detections and planes, and the graph's
     own buffers for the rest, which hold the new state.
@@ -72,7 +74,7 @@ def process_block_detect(iq: torch.Tensor, taps: torch.Tensor,
     if graph is not None:
         return graph.replay()
     dec, new_carry = bandpass_channelize(iq, taps, dphi, n0, carry,
-                                         oversample)
+                                         oversample, plan)
     block = torch.cat([hist, dec], dim=2)
     dets, phases, pwr = detect_planes(block, threshold, max_candidates,
                                       max_symbols)

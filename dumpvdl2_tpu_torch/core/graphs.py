@@ -22,23 +22,25 @@ after each replay, the tree as views of a fresh copy of that buffer
 (one launch).
 
 The kernel wrappers count their launches (``launches`` in
-dsp/sync_kernel.py, dsp/candidates_kernel.py, fec/l2_kernel.py and
-core/gate_kernel.py).  A capture launches nothing, so it leaves the
-counters as they were, and each replay adds the launches its capture
-made, so that the counters read as on the eager path.
+dsp/pfb_kernel.py, dsp/sync_kernel.py, dsp/candidates_kernel.py,
+fec/l2_kernel.py and core/gate_kernel.py).  A capture launches
+nothing, so it leaves the counters as they were, and each replay adds
+the launches its capture made, so that the counters read as on the
+eager path.
 """
 from __future__ import annotations
 
 import torch
 
-from ..dsp import candidates_kernel, sync_kernel
+from ..dsp import candidates_kernel, pfb_kernel, sync_kernel
 from ..fec import l2_kernel
 from ..utils import fetch
 from . import gate_kernel
 
 # The modules whose ``launches`` counters the kernel wrappers bump: an
 # int, or a dict by kernel.
-_WRAPPERS = (sync_kernel, candidates_kernel, l2_kernel, gate_kernel)
+_WRAPPERS = (pfb_kernel, sync_kernel, candidates_kernel, l2_kernel,
+             gate_kernel)
 
 
 def launch_counts() -> dict:

@@ -345,7 +345,7 @@ class MeshPipeline(VDL2Pipeline):
                             device=self.device)
         dec, _ = bandpass_channelize(
             torch.as_tensor(tail, device=self.device), self.taps, self.dphi,
-            start_raw & 0xFFFFFF, carry, self.oversample)
+            start_raw & 0xFFFFFF, carry, self.oversample, self.pfb_plan)
         # the first taps' worth of outputs used a zero carry: junk, but
         # they precede every unprocessed detection (margin covers them)
         cands = find_and_slice(dec, SYNC_THRESHOLD, self.max_candidates,

@@ -51,7 +51,7 @@ from ..constants import (HEADER_LEN, MAG_LP, NF_LP, SPS, SYMBOL_RATE,
 from ..dsp.chebyshev import fir_taps
 from ..dsp.demod import demod_window, find_and_slice, slice_windows
 from ..dsp.frontend import nco_dphi, prepare_taps, to_planar
-from ..dsp import ingest_kernel
+from ..dsp import ingest_kernel, pfb_kernel
 from ..fec import l2_kernel
 from ..fec.l2 import decode_payload, frame_power, l2_decode_batch
 from ..fec.scramble import descramble
@@ -252,11 +252,14 @@ def graph_key(device: torch.device, device_l2: bool, device_gate: bool,
 
 class _BlockGraphs(NamedTuple):
     """One steady block shape's captured steps: the detect graph's
-    input ``iq`` and the ``detect``, ``l2`` and ``gate`` graphs."""
+    input ``iq``, the ``detect``, ``l2`` and ``gate`` graphs, and the
+    filter bank's plan the detect graph was captured with (None: the
+    GEMM), held here because the graph reads its tensors."""
     iq: torch.Tensor
     detect: StepGraph
     l2: StepGraph
     gate: StepGraph
+    plan: pfb_kernel.Plan | None
 
 
 def resolve_device_l2(device_l2: bool | None = None) -> bool:
@@ -325,6 +328,10 @@ class VDL2Pipeline:
         C, T = len(freqs), taps.size
         self.taps = torch.as_tensor(taps, device=self.device)
         self.dphi = torch.as_tensor(dphi.astype(np.int64), device=self.device)
+        # the channelizer's filter bank for these taps and channels, or
+        # None where it does not apply (the GEMM)
+        self.pfb_plan = pfb_kernel.plan_for(self.taps, self.dphi,
+                                            self.oversample)
         self.carry = torch.zeros((2, T - 1), dtype=torch.float32,
                                  device=self.device)
         self.n0 = 0                                   # raw-sample NCO index
@@ -835,9 +842,15 @@ class VDL2Pipeline:
         del tree
         self._pending_q.append((self.use_device_gate, fut, base, nf_base,
                                 blk))
+        # The block this call dispatched waits for a later call (or
+        # finish), even where its fetch is done already: which call
+        # returns a frame then follows from the input alone, not from
+        # how soon the device got through the block.  Under ``step_ms``
+        # the call drains every block, this one too, to time its host
+        # step.
         frames = []
-        while len(self._pending_q) > 2 \
-                or (self._pending_q and self._pending_q[0][1].done()):
+        while len(self._pending_q) > 2 or (len(self._pending_q) > 1
+                                           and self._pending_q[0][1].done()):
             frames.extend(self._drain_oldest())
         if self.step_ms is not None:
             frames.extend(self._drain_pending())
@@ -856,7 +869,8 @@ class VDL2Pipeline:
         the gate) and advance the carried stream state, each step a span
         of the current call's record; no wait but under ``step_ms``.  A
         steady block replays the steps' CUDA graphs (:meth:`_graphs_for`,
-        the record's ``graphed``).  Returns the tree to fetch for the
+        the record's ``graphed``); the record's ``pfb`` says whether its
+        channelizer ran the filter bank (a graphed block's as captured).  Returns the tree to fetch for the
         drain (a :class:`fetch.Packed` one for graphs), the block's base
         and its noise-floor base."""
         log = self.span_log
@@ -864,6 +878,7 @@ class VDL2Pipeline:
         H = self.hist.shape[2]
         g = self._graphs_for(iq.shape[1], H)
         n0 = self.n0 & 0xFFFFFF
+        blk.pfb = (self.pfb_plan if g is None else g.plan) is not None
         if not self.use_device_l2:
             # host L2: every candidate's window is sliced on the device
             # and decoded on the host
@@ -871,7 +886,7 @@ class VDL2Pipeline:
             dets, new_hist, new_carry, pwr3 = process_block(
                 iq, self.taps, self.dphi, n0, self.carry,
                 self.hist, self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
-                self.max_candidates, MAX_BURST_SYMS)
+                self.max_candidates, MAX_BURST_SYMS, plan=self.pfb_plan)
             log.close(blk, "detect")
             l2 = l2_map = None
         else:
@@ -886,7 +901,8 @@ class VDL2Pipeline:
                     iq, self.taps, self.dphi, n0, self.carry, self.hist,
                     self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
                     self.max_candidates, MAX_BURST_SYMS,
-                    graph=None if g is None else g.detect)
+                    graph=None if g is None else g.detect,
+                    plan=self.pfb_plan)
             log.close(blk, "detect")
             log.open(blk, "l2")
             l2, l2_map = l2_sliced(phases, pwr, dets.count, dets.sync_idx,
@@ -983,6 +999,7 @@ class VDL2Pipeline:
         C, K, S = len(self.channels), self.max_candidates, MAX_BURST_SYMS
         iq = torch.empty((2, N), dtype=torch.float32, device=self.device)
         made = {}
+        plan = self.pfb_plan
 
         # the steps' own functions, not this module's names for them: a
         # capture is no block, and what wraps those names must not see
@@ -991,7 +1008,7 @@ class VDL2Pipeline:
             out = _device.process_block_detect(
                 iq, st["taps"], st["dphi"], st["n0"], st["carry"],
                 st["hist"], self.oversample, DEFAULT_HALO, SYNC_THRESHOLD,
-                K, S)
+                K, S, plan=plan)
             dets, phases, pwr, new_hist, new_carry, pwr3 = out
             st["hist"].copy_(new_hist)
             st["carry"].copy_(new_carry)
@@ -1020,7 +1037,7 @@ class VDL2Pipeline:
         pool = torch.cuda.graph_pool_handle()
         graphs = _BlockGraphs(iq, *(
             StepGraph(step, pool, self._capture_stream)
-            for step in (detect, l2, gate)))
+            for step in (detect, l2, gate)), plan)
         self.graph_captures += 1
         return graphs
 
@@ -1170,8 +1187,14 @@ def load_state(pipe: VDL2Pipeline, state: dict) -> None:
     def tensor(x, dtype):
         return torch.as_tensor(np.array(x, dtype), device=pipe.device)
 
-    pipe.taps = tensor(state["taps"], np.float32)
-    pipe.dphi = tensor(np.asarray(state["dphi"], np.uint32), np.int64)
+    taps = tensor(state["taps"], np.float32)
+    dphi = tensor(np.asarray(state["dphi"], np.uint32), np.int64)
+    if not (torch.equal(taps, pipe.taps) and torch.equal(dphi, pipe.dphi)):
+        # other taps or channels: their own plan, and graphs captured
+        # with it
+        pipe.pfb_plan = pfb_kernel.plan_for(taps, dphi, pipe.oversample)
+        pipe._graphs.clear()
+    pipe.taps, pipe.dphi = taps, dphi
     pipe.carry = tensor(state["carry"], np.float32)
     pipe.n0 = int(state["n0"])
     pipe.hist = tensor(state["hist"], np.float32)

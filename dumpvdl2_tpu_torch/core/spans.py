@@ -107,7 +107,9 @@ class Block:
     by part of the fetched tree (``fetch_bytes``), whether a call that
     dispatched or drained it ran with ``step_ms`` (``synced``) or under
     a profiler (``profiled``), whether its dispatch replayed the steps'
-    CUDA graphs (``graphed``, core/graphs.py), and on CUDA the
+    CUDA graphs (``graphed``, core/graphs.py), whether its channelizer
+    ran the polyphase filter bank (``pfb``, dsp/pfb_kernel.py; for a
+    graphed block as decided at the capture), and on CUDA the
     milliseconds of the device's timeline between its events: before
     and after each step (``detect_dev``, ``l2_dev``, ``gate_dev``), from
     its last step to its fetch's first operation (``fetch_lag_dev``),
@@ -116,13 +118,13 @@ class Block:
     record gets events)."""
 
     __slots__ = ("seq", "t", "outer", "frames", "fetch_bytes", "synced",
-                 "profiled", "graphed", "detect_dev", "l2_dev", "gate_dev",
-                 "fetch_lag_dev", "ingest_dev", "events")
+                 "profiled", "graphed", "pfb", "detect_dev", "l2_dev",
+                 "gate_dev", "fetch_lag_dev", "ingest_dev", "events")
 
     def __init__(self, seq: int, synced: bool, profiled: bool,
                  timed: bool):
         self.seq, self.synced, self.profiled = seq, synced, profiled
-        self.graphed = False
+        self.graphed = self.pfb = False
         self.t = [None] * _STAMPS
         self.outer = self.frames = self.fetch_bytes = None
         self.detect_dev = self.l2_dev = self.gate_dev = None

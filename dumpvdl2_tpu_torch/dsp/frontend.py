@@ -3,9 +3,12 @@
 Port of ``dumpvdl2_tpu/dsp/frontend.py``.  All channels are mixed from
 one shared wideband block: the 24-bit fixed-point NCO (reference
 demod.c:312-317,385) is folded into per-channel complex band-pass taps,
-the strided FIR runs as ONE (M, 2T) x (2T, 2C) float32 im2col matmul
-over the shared block, and the channel mix becomes a residual rotation
-at the decimated rate.
+the strided FIR runs over the shared block, and the channel mix becomes
+a residual rotation at the decimated rate.  Where the channels sit on
+one uniform grid (every cell of the CLI's rule: a 25 kHz grid tuned at
+its middle), the filtering is a polyphase filter bank, kernel KP on
+CUDA (dsp/pfb_kernel.py); for any other channel set it is ONE
+(M, 2T) x (2T, 2C) float32 im2col matmul.
 
 Complex samples are planar float32 pairs (leading axis 2 = [re, im]).
 The NCO phase accumulator wraps modulo 2^24; PyTorch has no full
@@ -21,8 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import pfb_kernel
+
 _TWO_PI_OVER_2_24 = float(np.float32(2.0 * np.pi / float(1 << 24)))
 _MASK24 = 0xFFFFFF
+# bandpass_channelize's ``plan`` where the caller gives none: made from
+# the taps and channels at the call
+FROM_TAPS = object()
 
 
 def dequantize_u8(raw: torch.Tensor) -> torch.Tensor:
@@ -125,9 +133,13 @@ def mix_filter_decimate_impl(iq: torch.Tensor, taps: torch.Tensor,
 
 def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,
                         dphi: torch.Tensor, n0: int | torch.Tensor,
-                        raw_carry: torch.Tensor, oversample: int
+                        raw_carry: torch.Tensor, oversample: int,
+                        plan=FROM_TAPS
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One front-end block for all channels.
+    """One front-end block for all channels: the polyphase filter bank
+    where there is a plan (:func:`pfb_kernel.plan_for`), else the im2col
+    GEMM; both compute the same sum (the bank to the Taylor remainder's
+    1e-7 of the output's RMS, and float32 rounding).
 
     Args:
       iq: (2, N) float32 planar wideband block, N % oversample == 0.
@@ -139,9 +151,37 @@ def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,
         which gives the same result.
       raw_carry: (2, T-1) float32 raw wideband tail of the previous
         block (zeros at stream start).
+      plan: the bank's :class:`pfb_kernel.Plan` for these taps, channels
+        and oversample, or None for the GEMM; by default made here from
+        the taps' values (a copy to the host, not allowed inside a CUDA
+        graph's capture), so a caller that runs block after block makes
+        it once and passes it.
     Returns:
       (decimated (2, C, N // oversample) float32, new_raw_carry).
     """
+    if plan is FROM_TAPS:
+        plan = pfb_kernel.plan_for(taps, dphi, oversample)
+    if plan is None:
+        return gemm_channelize(iq, taps, dphi, n0, raw_carry, oversample)
+    # the raw tail of [raw_carry, iq], as the GEMM path keeps it
+    N, T = iq.shape[1], taps.shape[0]
+    if N >= T - 1:
+        new_carry = iq[:, N - (T - 1):].clone(
+            memory_format=torch.contiguous_format)
+    else:
+        new_carry = torch.cat([raw_carry[:, N:], iq], dim=1)
+    if iq.stride(1) != 1:
+        iq = iq.contiguous()
+    return pfb_kernel.pfb(iq, raw_carry, plan, n0), new_carry
+
+
+def gemm_channelize(iq: torch.Tensor, taps: torch.Tensor,
+                    dphi: torch.Tensor, n0: int | torch.Tensor,
+                    raw_carry: torch.Tensor, oversample: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """bandpass_channelize as one im2col GEMM, for any channel set: the
+    JAX package's formulation, and the channelizer where the bank has
+    no plan."""
     N = iq.shape[1]
     T = taps.shape[0]
     os_ = oversample
@@ -176,9 +216,17 @@ def bandpass_channelize(iq: torch.Tensor, taps: torch.Tensor,
     w = kernel @ frames.T                              # (2C, M) float32
     wr, wi = w[:C], w[C:]
 
-    # Residual rotation e^{+j phi(G_j)}, G_j = n0 + os*(j+1) - 1
-    g = n0 + (torch.arange(M, dtype=torch.int64, device=dev) + 1) * os_ - 1
+    return residual_rotation(wr, wi, dphi, n0, os_), new_carry
+
+
+def residual_rotation(wr: torch.Tensor, wi: torch.Tensor,
+                      dphi: torch.Tensor, n0: int | torch.Tensor,
+                      oversample: int) -> torch.Tensor:
+    """(2, C, M) float32: the (C, M) filtered channels (wr, wi) turned
+    by e^{+j phi(G_j)}, the NCO phase at G_j = n0 + os*(j+1) - 1."""
+    M = wr.shape[1]
+    g = n0 + (torch.arange(M, dtype=torch.int64, device=wr.device) + 1) \
+        * oversample - 1
     ang_g = _nco_angle(g, dphi)
     cg, sg = torch.cos(ang_g), torch.sin(ang_g)
-    dec = torch.stack([wr * cg - wi * sg, wi * cg + wr * sg])
-    return dec, new_carry
+    return torch.stack([wr * cg - wi * sg, wi * cg + wr * sg])

@@ -29,6 +29,7 @@ import torch
 
 from ..constants import SPS, SYNC_THRESHOLD
 from ..dsp.demod import Candidates, find_and_slice
+from ..dsp import pfb_kernel
 from ..dsp.frontend import bandpass_channelize
 from .mesh import CHANNEL_AXIS, TIME_AXIS, Mesh
 
@@ -70,6 +71,28 @@ def make_sharded_step(mesh: Mesh, *, oversample: int, fwd_halo: int,
     grid, home = mesh.grid, mesh.home
     H, F = BACK_HALO, fwd_halo
     K, S = max_candidates, max_symbols
+    placed = {}
+
+    def place(taps, dphi):
+        """Each shard's taps, channel slice and filter bank plan on its
+        device, made for the first block and kept while the step is
+        given these very tensors (held here, so that no other tensor
+        takes their identity; an in-place change bumps the version)."""
+        key = (id(taps), taps._version, id(dphi), dphi._version)
+        if placed.get("key") != key:
+            C = dphi.shape[0]
+            Cl = C // Cn
+            shards = {}
+            for c in range(Cn):
+                for t in range(Tn):
+                    dev = grid[c][t]
+                    tp = _to(taps, dev)
+                    dp = _to(dphi[c * Cl:(c + 1) * Cl], dev)
+                    shards[c, t] = (tp, dp,
+                                    pfb_kernel.plan_for(tp, dp, oversample))
+            placed.clear()
+            placed.update(key=key, held=(taps, dphi), shards=shards)
+        return placed["shards"]
 
     def step(iq, taps, dphi, state: ShardedState):
         iq = torch.as_tensor(iq, dtype=torch.float32)
@@ -80,6 +103,7 @@ def make_sharded_step(mesh: Mesh, *, oversample: int, fwd_halo: int,
         C = dphi.shape[0]
         Cl = C // Cn
         chunks = [iq[:, t * Nl:(t + 1) * Nl] for t in range(Tn)]
+        shards = place(taps, dphi)
 
         # -- phase A: every shard channelizes its span; exchange 1 ------
         dec = [[None] * Tn for _ in range(Cn)]
@@ -89,10 +113,10 @@ def make_sharded_step(mesh: Mesh, *, oversample: int, fwd_halo: int,
                 local = _to(chunks[t], dev)
                 prefix = state.raw_tail[c] if t == 0 else \
                     _to(chunks[t - 1][:, Nl - (T - 1):], dev)
+                tp, dp, plan = shards[c, t]
                 dec[c][t], _ = bandpass_channelize(
-                    local, _to(taps, dev), _to(dphi[c * Cl:(c + 1) * Cl], dev),
-                    (state.n0 + t * Nl) & _MASK24, _to(prefix, dev),
-                    oversample)
+                    local, tp, dp, (state.n0 + t * Nl) & _MASK24,
+                    _to(prefix, dev), oversample, plan)
 
         # -- phase B: exchanges 2 and 3, detection ----------------------
         cands = [[None] * Tn for _ in range(Cn)]

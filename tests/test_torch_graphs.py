@@ -197,7 +197,8 @@ def test_launch_counts_add_up():
     a replay's launches to them (and takes a capture's back)."""
     before = graphs.launch_counts()
     assert {mod.__name__.rsplit(".", 1)[1] for mod, _ in before} == {
-        "sync_kernel", "candidates_kernel", "l2_kernel", "gate_kernel"}
+        "pfb_kernel", "sync_kernel", "candidates_kernel", "l2_kernel",
+        "gate_kernel"}
     delta = {k: i + 1 for i, k in enumerate(before)}
     try:
         graphs.add_launches(delta)
