@@ -29,11 +29,11 @@ Phases (each must pass; any failure exits non-zero):
    count and the crossing columns equal, the floats within rtol 1e-5,
    atol 1e-7.  Device (profiler) and wrapper-call times, the plain
    versions' times and the bounds;
-4. KC (find_candidates, csrc/candidates.cu), the L2 front, L2H, L2P,
-   L2D and RS (the L2 kernels, csrc/l2.cu; the front and L2P, behind
-   its hdr-ok compaction prologue, are the main path's L2 step, L2H
-   runs on pre-sliced symbols, L2D and RS are the stages' own entry
-   points, built on L2P's device functions) against their plain
+4. KC (find_candidates, csrc/candidates.cu), the L2 front, L2H, L2P
+   and RS (the L2 kernels, csrc/l2.cu; the front and L2P, behind its
+   hdr-ok compaction prologue, are the main path's L2 step, L2H runs on
+   pre-sliced symbols, RS is the stage's own entry point, built on
+   L2P's device functions) against their plain
    PyTorch versions on the card, every integer and byte equal (the
    front's frame_pwr within rtol 1e-6, its > 1.0 decision equal): KC
    on the wideband scene's real metric planes of a block and of the
@@ -41,7 +41,7 @@ Phases (each must pass; any failure exits non-zero):
    leaders than its 64 slots, the front on those slots; the front, L2H
    on its symbols and L2P (behind its compaction prologue, as the path
    runs it) on the real L2 inputs of the sliced block and the flush
-   (l2_sliced, the rs cap), L2D on the same rows and RS on L2D's
+   (l2_sliced, the rs cap), and RS on the same rows' deinterleaved
    tables; the launches of one sliced L2 step on the block's inputs, by
    the wrappers' counters and by a trace of that call alone (1 to 4);
    24 000 RS rows of sim.rs_fuzz (0-20 errors, erasures, zero
@@ -54,8 +54,7 @@ Phases (each must pass; any failure exits non-zero):
    l2_decode_batch on the card equal to the CPU's; the card's floor for
    a launch (a one-element fill_); each kernel's device (profiler) and
    wrapper-call times, its plain version's and its bound at the sliced
-   block's and the flush's shapes (KC at the block's), L2P beside
-   L2D + RS;
+   block's and the flush's shapes (KC at the block's);
 4b. KP (the polyphase filter bank, csrc/pfb.cu) against its plain twin
    on the card, bit for bit with one launch a call, at the wideband
    block (256 channels, oversample 80) and the live cell's two block
@@ -74,7 +73,7 @@ Phases (each must pass; any failure exits non-zero):
    finish; all 24 payloads must decode; KP 6 times (a block), K1, KC,
    G1, G2, the L2 front and L2P must each have launched 7 times on that
    run (6 blocks + EOF, blocks 3-6 as replays of the steps' CUDA graphs,
-   captured once), L2H, L2D and RS never, no plain version of a gate or
+   captured once), L2H and RS never, no plain version of a gate or
    L2 kernel may have run, and no plain detect or L2-front function
    (pfb_plain, gemm_channelize, candidates_plain, find_and_slice,
    slice_windows, demod_window, l2_front_plain, _slot_compaction,
@@ -99,7 +98,7 @@ Phases (each must pass; any failure exits non-zero):
 8. the host-gated path (device_gate=False) on the same scene: all its
    payloads must decode and its frames equal the gated run's (bytes and
    freq exact, nf_pwr_dbfs within 1e-4 dB), KC, the front and L2P
-   must each have launched, L2H, L2D and RS never, and no plain version
+   must each have launched, L2H and RS never, and no plain version
    of an L2 kernel or plain detect or L2-front function run; its realtime
    factor and breakdown beside the gated ones;
 9. the CLI on the card: the correctness vector written as an S16_LE file
@@ -118,7 +117,7 @@ Phases (each must pass; any failure exits non-zero):
    detection masks), KC on every shard's metric planes with its
    detection window (detect_lo, detect_hi) and G1 on that block's real
    merged (C, Tn*K) grid,
-   and L2H, L2P, L2D and RS on the mesh's real L2 inputs (launch_compacted_l2
+   and L2H, L2P and RS on the mesh's real L2 inputs (launch_compacted_l2
    over every shard's slots, a block and at EOF); then the mesh path
    (MeshPipeline,
    device-gated) on the whole wideband scene at mesh shapes (1, 2) and
@@ -128,7 +127,7 @@ Phases (each must pass; any failure exits non-zero):
    exact, nf_pwr_dbfs within 1e-4 dB); KP once a channelizer call (a
    shard a block, and a block re-read from the raw tail), K1 and KC
    launched once per shard a block plus once at EOF, G1, G2, L2H and
-   L2P once a block plus once at EOF, the front, L2D and RS never, no
+   L2P once a block plus once at EOF, the front and RS never, no
    plain version run.  Realtime factor, peak memory, the blocks re-read
    from the raw tail and the shards' devices are printed;
 12. the multi-process path (parallel/multihost.py): ``init_distributed()``
@@ -237,16 +236,16 @@ G2_OPS_PER_COLUMN = 6
 G2_OPS_PER_CROSSING = 5
 G2_OPS_PER_READ = 18
 # L2 kernels' least instructions.  L2H per burst (25 bit extracts and
-# merges, 5 parity folds, the bit reversal and the geometry).  L2D per
-# octet it packs (8 bit extracts and merges) and per cell of an accepted
-# burst's table (the index arithmetic, a compare, a select, the store).
-# RS per syndrome term (a table lookup and an XOR, 6 a position of a row
-# with parity) and per Chien and Forney term (7 a position of a row with
-# a nonzero syndrome).  L2P does L2D's and RS's.  All move more bytes
-# than they issue instructions.
+# merges, 5 parity folds, the bit reversal and the geometry).  L2P's
+# deinterleave per octet it packs (8 bit extracts and merges) and per
+# cell of an accepted burst's table (the index arithmetic, a compare, a
+# select, the store).  RS per syndrome term (a table lookup and an XOR,
+# 6 a position of a row with parity) and per Chien and Forney term (7 a
+# position of a row with a nonzero syndrome).  L2P does its deinterleave's
+# and RS's.  All move more bytes than they issue instructions.
 L2H_OPS_PER_BURST = 60
-L2D_OPS_PER_OCTET = 16
-L2D_OPS_PER_CELL = 6
+DEINT_OPS_PER_OCTET = 16
+DEINT_OPS_PER_CELL = 6
 RS_OPS_PER_TERM = 2
 # KC's least instructions per sample of the err plane: the two compares
 # of a crossing, the two of the detection window, the bit's shift and
@@ -262,7 +261,7 @@ FRONT_OPS_PER_SYMBOL = 10
 # for the stages' own entry points must not launch on either.
 L2_KERNELS = ("l2_front", "l2_payload")
 L2_MESH_KERNELS = ("l2_header", "l2_payload")
-L2_STANDALONE = ("l2_deinterleave", "rs_verify")
+L2_STANDALONE = ("rs_verify",)
 # The calls capture_l2_inputs records: core/pipeline.py's front and
 # fec/l2.py's kernel calls.
 L2_CALLS = {"pipeline": ("l2_front",),
@@ -780,12 +779,12 @@ def l2h_bound(B: int, sms: int, clock_hz: float) -> dict:
                   clock_hz)
 
 
-def l2d_work(args: tuple) -> tuple[int, int]:
-    """L2D's bytes and least instructions on these inputs: each accepted
-    burst's symbols up to its last parity octet, the geometry (17 bytes
-    a burst, 8 more for the row index), the (Bp, 9, 255) table and
-    (Bp, 9) parity counts out; the octets those bursts pack and their
-    table cells."""
+def deinterleave_work(args: tuple) -> tuple[int, int]:
+    """L2P's deinterleave's bytes and least instructions on these
+    inputs (l2_deinterleave_plain's form): each accepted burst's symbols
+    up to its last parity octet, the geometry (17 bytes a burst, 8 more
+    for a row index), the (Bp, 9, 255) table and (Bp, 9) parity counts
+    out; the octets those bursts pack and their table cells."""
     _, l2_kernel = l2_modules()
     symbols, sel, hdr_ok, num_blocks, _ll, lf, doct = args
     rows = torch.arange(symbols.shape[0], device=symbols.device) \
@@ -798,14 +797,9 @@ def l2d_work(args: tuple) -> tuple[int, int]:
     n_acc = int(acc.sum().item())
     nbytes = int(syms.sum().item()) + (17 + (sel is not None) * 8) * Bp \
         + (l2_kernel.MAX_BLOCKS * (255 + 4)) * Bp
-    ops = L2D_OPS_PER_OCTET * int(octets.sum().item()) \
-        + L2D_OPS_PER_CELL * l2_kernel.MAX_BLOCKS * 255 * n_acc
+    ops = DEINT_OPS_PER_OCTET * int(octets.sum().item()) \
+        + DEINT_OPS_PER_CELL * l2_kernel.MAX_BLOCKS * 255 * n_acc
     return nbytes, ops
-
-
-def l2d_bound(args: tuple, sms: int, clock_hz: float) -> dict:
-    """Least time for L2D on these inputs (l2d_work)."""
-    return _bound(*l2d_work(args), sms, clock_hz)
 
 
 def rs_ops(fec: torch.Tensor, count: torch.Tensor) -> int:
@@ -827,13 +821,13 @@ def rs_bound(fec: torch.Tensor, count: torch.Tensor, sms: int,
 
 def l2p_bound(args: tuple, fec_row: torch.Tensor, count: torch.Tensor,
               sms: int, clock_hz: float) -> dict:
-    """Least time for L2P on these inputs (payload_args' form): L2D's
-    bytes on the same rows (its inputs, the table and parity counts
-    written once) and the RS counts written once; behind the compaction
-    prologue no row index, but hdr_ok read and blocks_row written for
-    every burst.  L2D's operations and RS's on the table's rows
-    (``fec_row`` and ``count`` L2P's results)."""
-    nbytes, ops = l2d_work(l2d_args(args))
+    """Least time for L2P on these inputs (payload_args' form): its
+    deinterleave's bytes on the same rows (its inputs, the table and
+    parity counts written once) and the RS counts written once; behind
+    the compaction prologue no row index, but hdr_ok read and blocks_row
+    written for every burst.  The deinterleave's operations and RS's on
+    the table's rows (``fec_row`` and ``count`` L2P's results)."""
+    nbytes, ops = deinterleave_work(deinterleave_args(args))
     sym, cap = args[:2]
     if cap is not None:
         nbytes += (1 + 4) * sym.shape[0] - (8 + 1) * cap
@@ -856,20 +850,6 @@ def compare_l2h(symbols: torch.Tensor, label: str) -> dict:
                                  f"{label}: {key} ({bad} rows)")
     return {"rows": symbols.shape[0],
             "hdr_ok": int(p["hdr_ok"].sum().item())}
-
-
-def compare_l2d(args: tuple, label: str) -> dict:
-    """L2D against its plain version: table and parity counts equal."""
-    _, l2_kernel = l2_modules()
-    tk, fk = l2_kernel.l2_deinterleave_cuda(*args)
-    tp, fp = l2_kernel.l2_deinterleave_plain(*args)
-    torch.cuda.synchronize()
-    for name, a, b in (("table", tk, tp), ("fec_row", fk, fp)):
-        if a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(f"L2D differs from its plain version on "
-                                 f"{label}: {name}")
-    return {"rows": tk.shape[0],
-            "rs_rows": int((fp != 0).sum().item())}
 
 
 def compare_rs(blocks: torch.Tensor, fec: torch.Tensor, label: str
@@ -908,10 +888,10 @@ def l2p_calls(args: tuple) -> tuple:
             lambda: l2_kernel.l2_payload_capped_plain(*args))
 
 
-def l2d_args(args: tuple) -> tuple:
-    """L2D's arguments for the rows L2P decodes on ``args``: its row
-    index is the stable hdr-ok order's first ``cap`` rows (None for
-    every burst)."""
+def deinterleave_args(args: tuple) -> tuple:
+    """l2_deinterleave_plain's arguments for the rows L2P decodes on
+    ``args``: its row index is the stable hdr-ok order's first ``cap``
+    rows (None for every burst)."""
     _, l2_kernel = l2_modules()
     sym, cap, hdr_ok, *geom = args
     sel = None if cap is None else l2_kernel.compact_rows(hdr_ok, cap)[0]
@@ -1002,9 +982,10 @@ def payload_args(got: dict, stage: str) -> tuple:
 
 
 def rs_rows_of(d_args: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-    """RS's rows and parity counts for L2D's arguments: L2D's tables."""
+    """RS's rows and parity counts for deinterleave_args' arguments: the
+    deinterleaved tables (L2P's before its decode)."""
     _, l2_kernel = l2_modules()
-    tab, fec_row = l2_kernel.l2_deinterleave_cuda(*d_args)
+    tab, fec_row = l2_kernel.l2_deinterleave_plain(*d_args)
     return tab.reshape(-1, 255), fec_row.reshape(-1)
 
 
@@ -1223,22 +1204,20 @@ def check_kc_front(got: dict, sms: int, clock: float,
 
 
 def check_payload(p_args: tuple, label: str) -> dict:
-    """L2P (l2p_calls' form), L2D on the same rows and RS on L2D's
+    """L2P (l2p_calls' form) and RS on the same rows' deinterleaved
     tables against their plain versions."""
     p = compare_l2p(p_args, label)
-    d_args = l2d_args(p_args)
-    d = compare_l2d(d_args, label)
-    blocks, fec = rs_rows_of(d_args)
+    blocks, fec = rs_rows_of(deinterleave_args(p_args))
     r = compare_rs(blocks, fec, label)
-    return {"l2p": p, "l2d": d, "rs": r, "rs_rows": list(blocks.shape)}
+    return {"l2p": p, "rs": r, "rs_rows": list(blocks.shape)}
 
 
 def check_l2_captured(got: dict, label: str) -> dict:
     """The L2 kernels against their plain versions on captured real
     inputs, at each stage's shapes: the front (where the path runs it),
     L2H on the stage's symbols, L2P (with its compaction prologue where
-    the path runs it), and L2D and RS on L2P's arguments and L2D's
-    tables."""
+    the path runs it), and RS on the deinterleaved tables of L2P's
+    rows."""
     res = {}
     for stage in ("block", "eof"):
         p_args = payload_args(got, stage)
@@ -1261,7 +1240,7 @@ def check_l2_captured(got: dict, label: str) -> dict:
                f"{c['l2p']['overflow']} over) " if p_args[1] is not None
                else "")
             + f"({c['l2p']['rs_rows']} RS rows with parity, by count "
-            f"{c['l2p']['by_count']}), L2D on the same and RS on its "
+            f"{c['l2p']['by_count']}), RS on their "
             f"{tuple(c['rs_rows'])} rows: all equal to their plain "
             f"versions")
     return res
@@ -1313,14 +1292,13 @@ def launch_floor() -> dict:
 def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
     """Device (profiler) and wrapper-call times, plain times and bounds
     of L2P (as the path runs it, behind its compaction prologue where it
-    does), L2D on the same rows and RS on L2D's tables (and the front
+    does) and RS on the same rows' deinterleaved tables (and the front
     where the path runs it, L2H at the sliced block) on the captured
     inputs of ``stage``."""
     _, l2_kernel = l2_modules()
     p_args = payload_args(got, stage)
-    d_args = l2d_args(p_args)
     sym = p_args[0]
-    blocks, fec = rs_rows_of(d_args)
+    blocks, fec = rs_rows_of(deinterleave_args(p_args))
     kernel, plain = l2p_calls(p_args)
     _, count, fec_row, *_ = kernel()
     Bp = fec_row.shape[0]
@@ -1329,11 +1307,6 @@ def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
                        **l2p_bound(p_args, fec_row, count, sms, clock),
                        "shape": [Bp, 9, 255],
                        "rows_with_parity": int((fec_row != 0).sum().item())},
-        "l2_deinterleave": {**time_gate(
-            lambda: l2_kernel.l2_deinterleave_cuda(*d_args),
-            lambda: l2_kernel.l2_deinterleave_plain(*d_args),
-            "l2_deinterleave_kernel"), **l2d_bound(d_args, sms, clock),
-            "shape": [Bp, 9, 255]},
         "rs_verify": {**time_gate(
             lambda: l2_kernel.rs_verify_cuda(blocks, fec),
             lambda: l2_kernel.rs_verify_plain(blocks, fec),
@@ -1353,7 +1326,7 @@ def time_l2(got: dict, stage: str, sms: int, clock: float) -> dict:
 
 
 def check_l2(scene) -> dict:
-    """KC, the L2 front, L2H, L2P, L2D and RS against their plain
+    """KC, the L2 front, L2H, L2P and RS against their plain
     versions on the card: the wideband scene's real detection and L2
     inputs (sliced block and EOF), KC and the front on adversarial
     planes with far more leaders than slots, a fuzz of RS
@@ -1391,7 +1364,7 @@ def check_l2(scene) -> dict:
                       hdr["last_len"], hdr["lf"], hdr["datalen_octets"])
             c = check_payload(p_args, f"{name}, cap {cap}")
             log(f"{name} ({tuple(sym.shape)} symbols, cap {cap}): "
-                f"L2H, L2P, L2D and RS equal to their plain "
+                f"L2H, L2P and RS equal to their plain "
                 f"versions; RS rows with parity by count "
                 f"{c['l2p']['by_count']}")
             out = l2_step.l2_decode_batch(sym, sym.shape[1],
@@ -1436,7 +1409,7 @@ def check_l2(scene) -> dict:
             [frame_with_fcs(vector[2][1])]:
         raise AssertionError(f"near-cap burst: {res_b.reason}")
     log(f"L2 near-cap burst: {int(hdr['num_blocks'][0])} RS blocks, "
-        f"L2H, L2P, L2D and RS equal to their plain versions (RS rows "
+        f"L2H, L2P and RS equal to their plain versions (RS rows "
         f"with parity by count {c['l2p']['by_count']}), the frame "
         f"decodes through the kernels")
     res["near_cap"] = {"num_blocks": int(hdr["num_blocks"][0]), **c}
@@ -1454,10 +1427,6 @@ def check_l2(scene) -> dict:
         times = time_l2(got, stage, sms, clock)
         for name, t in times.items():
             log_time(name, stage, t, floor["ms"])
-        parts = times["l2_deinterleave"]["ms"] + times["rs_verify"]["ms"]
-        log(f"L2P at {stage}: {times['l2_payload']['ms']:.4f} ms against "
-            f"L2D + RS {parts:.4f} ms in this call "
-            f"({times['l2_payload']['ms'] / parts:.3f} of it)")
         res["times" if stage == "block" else "times_eof"] = times
     return res
 
@@ -2722,9 +2691,6 @@ def main() -> int:
         entry("l2_payload", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/l2_tpu.py:63",
               l2["times"]["l2_payload"], 0),
-        entry("l2_deinterleave", "dumpvdl2_tpu_torch/csrc/l2.cu",
-              "dumpvdl2_tpu/fec/l2_tpu.py:63",
-              l2["times"]["l2_deinterleave"], 0),
         entry("rs_verify", "dumpvdl2_tpu_torch/csrc/l2.cu",
               "dumpvdl2_tpu/fec/rs_tpu.py:252", l2["times"]["rs_verify"],
               0),

@@ -81,8 +81,8 @@ def header_info(header_bits: np.ndarray) -> BurstResult:
 def decode_bursts_device(symbols: np.ndarray, max_symbols: int,
                          device: str | torch.device | None = None
                          ) -> list[BurstResult]:
-    """Batched burst decode on the card (fec/l2.py: kernels L2H, L2D
-    and RS), or on the CPU when ``device="cpu"``.
+    """Batched burst decode on the card (fec/l2.py: kernels L2H and
+    L2P), or on the CPU when ``device="cpu"``.
 
     ``symbols``: (B, S) uint8 gray-decoded symbols, one row per
     candidate burst.  Descramble, header FEC, deinterleave and RS run

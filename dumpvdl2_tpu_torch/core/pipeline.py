@@ -23,8 +23,10 @@ gating modes:
 * a decimated-sample halo is carried between blocks so bursts that
   straddle a block boundary are re-detected and decoded once fully
   contained,
-* the results come back in ONE device->host copy per block, in a
-  background thread, and the host works two blocks behind the device,
+* the results come back in ONE device->host copy per block, into pinned
+  memory, enqueued after the block's work (utils/fetch.py::start); a
+  background thread waits for it, and the host works two blocks behind
+  the device,
 * on CUDA, device L2 and gate, each steady block (full halo) replays
   the three steps as CUDA graphs captured on the first block of its
   shape (core/graphs.py, :func:`graph_key`): three graph launches and
@@ -60,7 +62,6 @@ from ..utils.debug import (D_BURST, D_BURST_DETAIL, D_DEMOD, debug_print,
                            debug_print_buf_hex)
 from ..utils.devices import resolve_device
 from ..utils import fetch
-from ..utils.fetch import coalesced_get
 from . import device as _device
 from . import nf_gate
 from .device import detect_planes, process_block, process_block_detect
@@ -828,18 +829,15 @@ class VDL2Pipeline:
         if blk is None:
             blk = log.new_block(self.step_ms is not None)
         log.open(blk, "feed_planar")
-        # The queue holds no device tensors: the fetch future owns the
-        # only references, so each block's buffers (with host L2 the
-        # (C, K, S) symbols and powers, ~0.46 GB a wideband block) are
-        # freed as soon as its transfer completes.  The fetch thread
-        # puts its copies on the same (default) stream, after this
-        # block's work.
+        # The queue holds no device tensors: each block's (with host L2
+        # the (C, K, S) symbols and powers, ~0.46 GB a wideband block)
+        # are freed once its copy is enqueued, the caching allocator
+        # ordering the free after the copy on the stream.
         log.open(blk, "dispatch")
-        tree, base, nf_base = self._dispatch_block(iq)
+        pending, base, nf_base = self._dispatch_block(iq)
         log.close(blk, "dispatch")
         t_fetch = time.perf_counter_ns()
-        fut = self._submit_fetch(tree, blk)
-        del tree
+        fut = self._submit_fetch(pending, blk)
         self._pending_q.append((self.use_device_gate, fut, base, nf_base,
                                 blk))
         # The block this call dispatched waits for a later call (or
@@ -870,9 +868,11 @@ class VDL2Pipeline:
         of the current call's record; no wait but under ``step_ms``.  A
         steady block replays the steps' CUDA graphs (:meth:`_graphs_for`,
         the record's ``graphed``); the record's ``pfb`` says whether its
-        channelizer ran the filter bank (a graphed block's as captured).  Returns the tree to fetch for the
-        drain (a :class:`fetch.Packed` one for graphs), the block's base
-        and its noise-floor base."""
+        channelizer ran the filter bank (a graphed block's as captured).
+        Every block ends the same way: its results' fetch starts here
+        (:func:`fetch.start`, a graph's from the gate graph's pack).
+        Returns the pending fetch for the drain, the block's base and
+        its noise-floor base."""
         log = self.span_log
         blk = log.current
         H = self.hist.shape[2]
@@ -923,24 +923,25 @@ class VDL2Pipeline:
         self.hist = new_hist
         self.hist_base = base + M_total - keep
 
+        buf = None
         if self.use_device_gate:
             # the drain fetches verdicts and per-accept noise-floor
             # readings instead of the magnitude stream
             log.open(blk, "gate")
             if g is not None:
                 self._static["delta"].fill_(self._gate_delta(base))
-                tree = g.gate.replay()
+                tree, buf = g.gate.replay()
             else:
                 gout, self._gate_state = self._dispatch_gate(
                     dets, l2, l2_map, pwr3, H, self._gate_delta(base))
                 tree = (gout, self._candidate_fields(dets), l2, l2_map)
             log.close(blk, "gate")
-            if g is not None:
-                tree = self._fetch_copy(*tree, blk)
-            return tree, base, base + H
-        return ((mag16(pwr3),
-                 self._candidate_fields(dets, not self.use_device_l2), l2,
-                 l2_map), base, base + H)
+        else:
+            tree = (mag16(pwr3),
+                    self._candidate_fields(dets, not self.use_device_l2),
+                    l2, l2_map)
+        log.event(blk, "fetch")
+        return fetch.start(tree, buf), base, base + H
 
     # ------------------------------------------------------- CUDA graphs
     def _graphs_for(self, N: int, H: int) -> _BlockGraphs | None:
@@ -1041,38 +1042,21 @@ class VDL2Pipeline:
         self.graph_captures += 1
         return graphs
 
-    def _fetch_copy(self, tree, buf: torch.Tensor, blk) -> fetch.Packed:
-        """A graphed block's fetch, enqueued by the main thread after the
-        gate replay, before the next replay overwrites ``buf`` (the gate
-        graph's pack of ``tree``): one non-blocking copy into pinned
-        host memory, and the event the fetch thread waits for.  (A
-        pageable copy made by the fetch thread waits in the stream for
-        all the work enqueued by then, and the main thread's CUDA calls
-        stall behind it meanwhile.)  The copy is the fetch's first
-        device operation, so the record's ``fetch`` event goes here
-        (core/spans.py)."""
-        self.span_log.fetch_enqueued(blk)
-        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-        host.copy_(buf, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return fetch.Packed(tree, host, ready)
-
-    def _submit_fetch(self, tree, blk):
+    def _submit_fetch(self, pending: fetch.Pending, blk):
         if self._fetch_pool is None:
             self._fetch_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="vdl2-fetch")
-        return self._fetch_pool.submit(self._fetch, tree, blk)
+        return self._fetch_pool.submit(self._fetch, pending, blk)
 
-    def _fetch(self, tree, blk):
-        """The fetch thread's copy of one block's results (span
-        ``fetch`` of ``blk``, its event before the first operation),
-        then the block's device times (the copy waited for the stream,
-        so its events have completed) and the bytes it copied by part
-        of the tree."""
+    def _fetch(self, pending: fetch.Pending, blk):
+        """The fetch thread's wait for one block's copy (span ``fetch``
+        of ``blk``, ending when the results are on the host) and their
+        unpacking; then the block's device times (its events precede the
+        copy, so they have completed) and the bytes copied by part of
+        the tree.  It issues no device work."""
         log = self.span_log
         log.open(blk, "fetch")
-        out = coalesced_get(tree)
+        out = pending.get()
         log.close(blk, "fetch")
         log.fetched(blk, out)
         return out
@@ -1134,7 +1118,7 @@ class VDL2Pipeline:
         if not self.use_device_l2:
             cands = find_and_slice(self.hist, SYNC_THRESHOLD,
                                    self.max_candidates, MAX_BURST_SYMS)
-            fetched = coalesced_get(self._candidate_fields(cands, True))
+            fetched = fetch.coalesced_get(self._candidate_fields(cands, True))
             return self._process_candidates(self.hist_base, True, fetched,
                                             None, None)
         # device L2: the halo's detections, then the sliced L2 step (the
@@ -1156,11 +1140,11 @@ class VDL2Pipeline:
                 l2["hdr_ok"], l2["bits_consumed"],
                 self._gate_delta(self.hist_base), self._gate_state_now(),
                 self._freqs_f32, self.max_ppm, eof=True)
-            gout_np, fetched, l2_np, l2_map_np = coalesced_get(
+            gout_np, fetched, l2_np, l2_map_np = fetch.coalesced_get(
                 (gout, self._candidate_fields(dets), l2, l2_map))
             return self._process_verdicts(gout_np, fetched, l2_np,
                                           l2_map_np, self.hist_base)
-        fetched, l2_np, l2_map_np = coalesced_get(
+        fetched, l2_np, l2_map_np = fetch.coalesced_get(
             (self._candidate_fields(dets), l2, l2_map))
         return self._process_candidates(self.hist_base, True, fetched,
                                         l2_np, l2_map_np)

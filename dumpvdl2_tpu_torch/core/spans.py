@@ -16,24 +16,23 @@ drain's or a finish's, which runs inside a later call: the record keeps
 that call as ``outer``, (sequence number, name).
 
 On CUDA the log records timing events in stream order at span
-boundaries (detect's start, each step's end, and the fetch's start on
-the fetch thread, or for a graphed block the main thread's enqueue of
-its fetch copy; for ``feed_raw``, before the raw copy and after the
-ingest kernel), on one record in EVENT_EVERY and on every record of
-a measuring call (``step_ms``, a profiler);
+boundaries (detect's start, each step's end, and the main thread's
+start of the block's fetch, before its copy; for ``feed_raw``, before
+the raw copy and after the ingest kernel), on one record in EVENT_EVERY
+and on every record of a measuring call (``step_ms``, a profiler);
 :meth:`SpanLog.fetched` turns them into milliseconds on the fetch
-thread once its copy is done: the copy waits for the stream, so every
-event has completed and none is waited for.  These are intervals of the
-device's timeline between two events, not the step's kernel time: they
-also hold the device's idle time while the host is still enqueuing the
-step, and any work of the fetch thread (an earlier block's copy) that
-the stream ran between the two events.
+thread once the copy is done: the copy follows every event in the
+stream, so each has completed and none is waited for.  These are
+intervals of the device's timeline between two events, not the step's
+kernel time: they also hold the device's idle time while the host is
+still enqueuing the step.
 
-While a torch profiler records, each span is also a
-``record_function("vdl2.<name>")`` range, so profiler traces carry the
-spans beside the kernels (the fetch thread's only where the profiler
-records every thread).  Outside a profiler no ``record_function`` is
-entered; each call (and each fetch) checks once.
+While a torch profiler records, each span is also a ``vdl2.<name>``
+range (a user annotation, as ``record_function`` makes), so profiler
+traces carry the spans beside the kernels (the fetch thread's only
+where the profiler records every thread); a span's stamps lie inside
+its range.  Outside a profiler no range is entered; each call (and each
+fetch) checks once.
 :meth:`SpanLog.wall_ns` puts a span on the trace's clock.
 
 :func:`latest` is the log of the newest pipeline built, so that it can
@@ -43,10 +42,11 @@ from __future__ import annotations
 
 import time
 from collections import deque, namedtuple
+from itertools import starmap
+from operator import call
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
-from torch.autograd.profiler import record_function
 
 from ..utils.fetch import nbytes
 
@@ -74,7 +74,6 @@ SLOT = {name: 2 * i for i, name in enumerate(PARENT)}  # start; end at +1
 _STAMPS = 2 * len(SLOT)
 _CALLS = ("feed_planar", "finish")    # the calls a drain or finish runs in
 _OUTER = ("drain", "finish")
-_EVENT_AT_OPEN = {"detect": "start", "fetch": "fetch"}  # and STEPS at close
 FEEDS = ("feed", "feed_raw")          # the calls that hold feed.h2d
 
 Span = namedtuple("Span", "name seq parent thread start end")
@@ -88,6 +87,47 @@ _latest = None
 def latest():
     """The span log of the newest pipeline built, or None."""
     return _latest
+
+
+_RANGE_ENTER = torch._C._autograd._record_function_with_args_enter
+_RANGE_EXIT = torch._C._autograd._record_function_with_args_exit
+
+
+def _enter(name: str) -> tuple:
+    """Start the profiler range ``name`` (a user annotation, as
+    ``record_function`` makes); returns its handle and a perf_counter_ns
+    stamp read right after the range read its clock.  This entry holds
+    the GIL throughout: ``record_function``'s enter releases it, so a
+    thread's first range under a profiler (which registers the thread
+    there) can wait milliseconds for the GIL before the range reads its
+    clock; and it runs no CUPTI-monitor hook, whose first call imports a
+    module (~1 ms).  Both calls run from C (``starmap``): between two
+    calls made from Python, a thread waiting for the GIL takes it, most
+    often right after the range's start, the longest call, and the
+    stamp would lag the range by as long as that thread keeps it."""
+    return tuple(starmap(call, ((_RANGE_ENTER, name),
+                                (time.perf_counter_ns,))))
+
+
+def _leave(handle) -> int:
+    """A perf_counter_ns stamp, then the end of the range ``handle``,
+    both run from C as in :func:`_enter`; returns the stamp."""
+    return tuple(starmap(call, ((time.perf_counter_ns,),
+                                (_RANGE_EXIT, handle))))[0]
+
+
+def _clock_anchor(reads: int = 8) -> tuple[int, int]:
+    """(perf_counter_ns, time_ns) of one moment: of ``reads`` readings
+    of time_ns each between two of perf_counter_ns, the most narrowly
+    bracketed, against its bracket's middle (a thread preempted between
+    two reads would put every span off on the trace's clock)."""
+    best = None
+    for _ in range(reads):
+        a, wall, b = time.perf_counter_ns(), time.time_ns(), \
+            time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, wall)
+    return best[1:]
 
 
 def profiling() -> bool:
@@ -112,7 +152,7 @@ class Block:
     graphed block as decided at the capture), and on CUDA the
     milliseconds of the device's timeline between its events: before
     and after each step (``detect_dev``, ``l2_dev``, ``gate_dev``), from
-    its last step to its fetch's first operation (``fetch_lag_dev``),
+    its last step to the start of its fetch (``fetch_lag_dev``),
     and from the start of feed_raw's copy to the end of its ingest
     kernel (``ingest_dev``); None where not measured (``timed``: the
     record gets events)."""
@@ -184,20 +224,21 @@ class Block:
 class SpanLog:
     """The block records of one pipeline on ``device``, the newest
     RING_BLOCKS kept, the clock anchor ``anchor`` = (perf_counter_ns,
-    time_ns) taken together at the start, and ``counts`` of a file's
-    input (io/iqfile.py::feed_iq_file): ``read_bytes`` read, and
-    ``staging_waits``, reads that waited for a staging buffer's copy."""
+    time_ns) of one moment at the start (:func:`_clock_anchor`), and
+    ``counts`` of a file's input (io/iqfile.py::feed_iq_file):
+    ``read_bytes`` read, and ``staging_waits``, reads that waited for a
+    staging buffer's copy."""
 
     def __init__(self, device: torch.device):
         global _latest
         self.device = device
         self.blocks: deque = deque(maxlen=RING_BLOCKS)
-        self.anchor = (time.perf_counter_ns(), time.time_ns())
+        self.anchor = _clock_anchor()
         self._seq = 0
         self.current = None           # the record of the current call
         self._calls: list = []        # open feed_planar/finish (seq, name)
         self._synced = self._profiled = False    # of the current call
-        self._ranges: dict = {}       # (seq, name) -> its record_function
+        self._ranges: dict = {}       # (seq, name) -> its range's handle
         self._free: list = []         # resolved events, to record again
         self._streams: dict = {}      # current-stream key -> Stream
         self._cuda = device.type == "cuda"
@@ -211,7 +252,7 @@ class SpanLog:
     def new_block(self, synced: bool) -> Block:
         """A new record for the call that starts now (``synced``: it
         runs with ``step_ms``); checks once whether a profiler records,
-        which decides the ``record_function`` ranges of the call's
+        which decides the profiler ranges of the call's
         spans."""
         self._synced, self._profiled = synced, profiling()
         blk = Block(self._seq, synced, self._profiled, self._cuda and (
@@ -225,7 +266,7 @@ class SpanLog:
         """Start span ``name`` of ``blk``: ``fetch`` on the fetch
         thread, the others on the main thread.  A drain marks its block
         ``synced`` or ``profiled`` as its call runs.  On CUDA, detect's
-        start records the event ``start``, the fetch's ``fetch``."""
+        start records the event ``start``."""
         if name == "fetch":
             on = profiling()
             blk.profiled |= on
@@ -240,16 +281,14 @@ class SpanLog:
                 self._calls = [(blk.seq, name)]   # exception left
             elif name == "finish":
                 self._calls.append((blk.seq, name))
-        # the stamps enclose the record_function range, whose first
-        # enter under a new profiler can take a millisecond
-        blk.t[SLOT[name]] = time.perf_counter_ns()
-        if on:
-            rf = self._ranges[(blk.seq, name)] = record_function(
+        if on:     # stamped inside the range
+            self._ranges[(blk.seq, name)], blk.t[SLOT[name]] = _enter(
                 "vdl2." + name)
-            rf.__enter__()
-        if blk.events is not None and name in _EVENT_AT_OPEN \
-                and _EVENT_AT_OPEN[name] not in blk.events:
-            self._event(blk, _EVENT_AT_OPEN[name])
+        else:
+            blk.t[SLOT[name]] = time.perf_counter_ns()
+        if name == "detect" and blk.events is not None \
+                and "start" not in blk.events:
+            self._event(blk, "start")
 
     def close(self, blk: Block, name: str) -> None:
         """End span ``name`` of ``blk``.  A step's end (STEPS) records
@@ -261,25 +300,19 @@ class SpanLog:
                 self._event(blk, name)
             if blk.synced:
                 torch.cuda.synchronize(self.device)
-        if self._ranges:
-            rf = self._ranges.pop((blk.seq, name), None)
-            if rf is not None:
-                rf.__exit__(None, None, None)
-        blk.t[SLOT[name] + 1] = time.perf_counter_ns()
+        handle = self._ranges.pop((blk.seq, name), None) \
+            if self._ranges else None
+        blk.t[SLOT[name] + 1] = time.perf_counter_ns() if handle is None \
+            else _leave(handle)
         if name in _CALLS and self._calls:
             self._calls.pop()
 
-    def fetch_enqueued(self, blk: Block) -> None:
-        """``blk``'s fetch copy is enqueued now on this (the main)
-        thread's stream, as for a graphed block (core/pipeline.py): the
-        ``fetch`` event goes here, in stream order before the copy, and
-        the fetch thread's span records none."""
-        self.event(blk, "fetch")
-
     def event(self, blk: Block, name: str) -> None:
         """A timing event ``name`` of ``blk`` in stream order now, on a
-        record that gets events (feed_raw's ``ingest`` before its copy
-        and ``ingested`` after its kernel)."""
+        record that gets events: ``fetch`` as the main thread starts the
+        block's fetch, before its copy (core/pipeline.py), and
+        feed_raw's ``ingest`` before its copy and ``ingested`` after its
+        kernel."""
         if blk.events is not None and self._cuda:
             self._event(blk, name)
 
@@ -317,10 +350,10 @@ class SpanLog:
         blk.events[name] = ev
 
     def fetched(self, blk: Block, out) -> None:
-        """After ``blk``'s fetch copied ``out`` (a tuple of trees): its
-        device times if its events have completed (after the copy they
-        have; the events go back to the pool), and in a ``synced``
-        record the bytes copied by part."""
+        """After ``blk``'s fetch brought ``out`` (a tuple of trees) to the
+        host: its device times if its events have completed (after the
+        copy they have; the events go back to the pool), and in a
+        ``synced`` record the bytes copied by part."""
         if blk.synced:
             blk.fetch_bytes = tuple(nbytes(part) for part in out)
         events = blk.events

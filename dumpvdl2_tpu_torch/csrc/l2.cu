@@ -1,13 +1,12 @@
 // L2 kernels L2H (l2_header, and l2_front: the sliced L2 step's front),
-// L2P (l2_payload), L2D (l2_deinterleave) and RS (rs_verify) for Hopper
-// (sm_90a).
+// L2P (l2_payload) and RS (rs_verify) for Hopper (sm_90a).
 //
 // These replace the XLA stages of the JAX package's L2 step, which it
 // compiles into one executable (dumpvdl2_tpu/core/pipeline.py:121-204,
 // fec/l2_tpu.py:63, fec/rs_tpu.py:120 and :252), not TPU kernels.  The
 // plain versions are in dumpvdl2_tpu_torch/fec/l2_kernel.py
 // (l2_front_plain, l2_header_plain, l2_payload_plain,
-// l2_payload_capped_plain, l2_deinterleave_plain, rs_verify_plain); on a
+// l2_payload_capped_plain, rs_verify_plain); on a
 // CUDA tensor the wrappers there launch these.
 // Every output but the frame power is an integer or a byte and equals
 // the plain version's exactly, on any input: int32 sums wrap as
@@ -88,11 +87,10 @@
 //   (2 295 B and 72 B of counts a burst); a burst is one chain of
 //   dependent steps, so what it takes is latency.
 //
-// L2D l2_deinterleave is L2P without step 5 (the table and the parity
-//   counts); RS rs_verify stages each row (a warp a row, 8 a CTA) from
-//   global memory into shared memory and runs the same rs_decode_row.
-//   Neither runs on the main path: L2D is the stage's own entry point
-//   and RS that of fec/rs_batch.py::rs_verify_batch.
+// RS rs_verify stages each row (a warp a row, 8 a CTA) from global
+//   memory into shared memory and runs L2P's rs_decode_row.  It does not
+//   run on the main path: it is fec/rs_batch.py::rs_verify_batch's
+//   entry point.
 //
 // rs_decode_row: lane l holds positions l + 32 m.  The 6 syndromes are
 //   lane partials XOR-reduced by shuffles; every lane runs the erasure
@@ -144,7 +142,7 @@ constexpr int kSps = 10;                       // SPS
 constexpr int kArity = 8;                      // ARITY
 constexpr float kTwoPi = 6.28318548202514648f;       // float32(2 pi)
 constexpr float kQuarterPi = 0.785398185253143311f;  // float32(pi / 4)
-constexpr int kPayloadThreads = 32 * kMaxBlocks;  // L2P, L2D: a warp a row
+constexpr int kPayloadThreads = 32 * kMaxBlocks;  // L2P: a warp a row
 constexpr int kRsWarps = 8;                    // RS: rows a CTA
 constexpr int kPerLane = 8;                    // positions a lane
 
@@ -263,7 +261,7 @@ __global__ void __launch_bounds__(kHeaderThreads) l2_header_kernel(
                synd_weight, h_rows, prbs, out, flags, &bits);
 }
 
-// --------------------------------------------------------- L2P and L2D
+// ------------------------------------------------------------------ L2P
 // Bytes [0, n) of a row at any alignment into dst + (src & 15), dst
 // 16-byte aligned: the aligned middle by 16-byte cp.async, the ragged
 // ends by byte.  Returns the offset of byte 0 in dst.
@@ -467,9 +465,8 @@ __device__ int rs_decode_row(uint8_t* row, int fo,
   return root_count;
 }
 
-// One burst's table (and with kDecode its RS decode), a CTA of
-// kPayloadThreads; see L2P above.
-template <bool kDecode>
+// One burst's table and its RS decode, a CTA of kPayloadThreads; see
+// L2P above.
 __device__ __forceinline__ void payload_body(
     const uint8_t* __restrict__ symbols, int S, long long src_row,
     const uint8_t* __restrict__ hdr_ok,
@@ -500,7 +497,7 @@ __device__ __forceinline__ void payload_body(
   if (lane == 0) fec_row[bp * kMaxBlocks + warp] = fo;
   if (nb <= 0) {                      // no table row: every cell a pad
     for (int c = threadIdx.x; c < kCells; c += kPayloadThreads) out[c] = 0;
-    if (kDecode && lane == 0) count[bp * kMaxBlocks + warp] = 0;
+    if (lane == 0) count[bp * kMaxBlocks + warp] = 0;
     return;
   }
 
@@ -537,13 +534,10 @@ __device__ __forceinline__ void payload_body(
   __syncthreads();
 
   // ---- decode row `warp` in place -----------------------------------
-  if (kDecode) {
-    const int cnt = rs_decode_row(tab_s + warp * kRsN, fo,
-                                  const_s + kExpOff, const_s + kLogOff,
-                                  lane);
-    if (lane == 0) count[bp * kMaxBlocks + warp] = cnt;
-    __syncthreads();
-  }
+  const int cnt = rs_decode_row(tab_s + warp * kRsN, fo, const_s + kExpOff,
+                                const_s + kLogOff, lane);
+  if (lane == 0) count[bp * kMaxBlocks + warp] = cnt;
+  __syncthreads();
   for (int c = threadIdx.x; c < kCells; c += kPayloadThreads)
     out[c] = tab_s[c];
 }
@@ -627,21 +621,8 @@ __global__ void __launch_bounds__(kPayloadThreads) l2_payload_kernel(
       blocks_row != nullptr ? compact_row(hdr_ok, B, gridDim.x, bp,
                                           blocks_row)
                             : bp;
-  payload_body<true>(symbols, S, src_row, hdr_ok, num_blocks, last_len, lf,
-                     doct, consts, tab, count, fec_row);
-}
-
-__global__ void __launch_bounds__(kPayloadThreads) l2_deinterleave_kernel(
-    const uint8_t* __restrict__ symbols, int S,
-    const long long* __restrict__ sel, const uint8_t* __restrict__ hdr_ok,
-    const int* __restrict__ num_blocks, const int* __restrict__ last_len,
-    const int* __restrict__ lf, const int* __restrict__ doct,
-    const uint8_t* __restrict__ consts, uint8_t* __restrict__ tab,
-    int* __restrict__ fec_row) {
-  const int bp = blockIdx.x;
-  payload_body<false>(symbols, S, sel != nullptr ? sel[bp] : bp, hdr_ok,
-                      num_blocks, last_len, lf, doct, consts, tab, nullptr,
-                      fec_row);
+  payload_body(symbols, S, src_row, hdr_ok, num_blocks, last_len, lf, doct,
+               consts, tab, count, fec_row);
 }
 
 // ------------------------------------------------------------ L2 front
@@ -818,19 +799,6 @@ extern "C" int l2_payload_launch(
                       static_cast<cudaStream_t>(stream)>>>(
       symbols, S, B, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
       count, fec_row, blocks_row);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int l2_deinterleave_launch(
-    const uint8_t* symbols, int S, const long long* sel, int Bp,
-    const uint8_t* hdr_ok, const int* num_blocks, const int* last_len,
-    const int* lf, const int* doct, const uint8_t* consts, uint8_t* tab,
-    int* fec_row, void* stream) {
-  if (Bp <= 0) return 0;
-  l2_deinterleave_kernel<<<Bp, kPayloadThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      symbols, S, sel, hdr_ok, num_blocks, last_len, lf, doct, consts, tab,
-      fec_row);
   return static_cast<int>(cudaGetLastError());
 }
 

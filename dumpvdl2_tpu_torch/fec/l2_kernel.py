@@ -1,4 +1,4 @@
-"""L2 kernels (the front L2H, L2P, L2D and RS) and their plain twins.
+"""L2 kernels (the front L2H, L2P and RS) and their plain twins.
 
 The JAX package compiles its whole L2 step (``core/pipeline.py``'s
 ``_l2_sliced_impl``, ``fec/l2_tpu.py``, ``fec/rs_tpu.py``) into one XLA
@@ -23,17 +23,18 @@ hand-written CUDA kernels (``csrc/l2.cu``):
   throughout.  ``l2_payload_capped`` is L2P behind the hdr-ok
   compaction: each block finds its row by a scan of ``hdr_ok``.
 
-Two more kernels are built on L2P's device functions and keep their
-stages' entry points: L2D ``l2_deinterleave`` (the table and parity
-counts, no decode) and RS ``rs_verify`` (the decode of given rows, a
-warp a row; ``fec/rs_batch.py::rs_verify_batch``).
+One more kernel is built on L2P's device functions and keeps its
+stage's entry point: RS ``rs_verify`` (the decode of given rows, a warp
+a row; ``fec/rs_batch.py::rs_verify_batch``).  The deinterleave alone
+has only its plain version, :func:`l2_deinterleave_plain`, the first
+half of :func:`l2_payload_plain`.
 
 ``fec/l2.py`` calls :func:`l2_header`, :func:`l2_payload` and
-:func:`l2_payload_capped`, ``fec/rs_batch.py`` :func:`rs_verify`;
-:func:`l2_deinterleave` is L2D's.  On a CUDA tensor they launch the
-kernel or raise; on a CPU tensor they run the plain version
-(``*_plain``).  The front's wrapper and plain version, which compose
-the DSP stage's window slicing and decisions with L2H's header, are
+:func:`l2_payload_capped`, ``fec/rs_batch.py`` :func:`rs_verify`.  On a
+CUDA tensor they launch the kernel or raise; on a CPU tensor they run
+the plain version (``*_plain``).  The front's wrapper and plain
+version, which compose the DSP stage's window slicing and decisions
+with L2H's header, are
 ``core/pipeline.py``'s ``l2_front`` and ``l2_front_plain``;
 :func:`l2_front_cuda` launches its kernel.  Only the CUDA path counts
 in :data:`launches` (L2P behind its compaction counts as
@@ -68,7 +69,7 @@ MIN_SYMBOLS = -(-(HEADER_LEN + 8 * MAX_TOTAL_OCT) // 3)  # 5609
 
 # Kernel launches since start (or the last reset by the caller).
 launches = {"l2_front": 0, "l2_header": 0, "l2_payload": 0,
-            "l2_deinterleave": 0, "rs_verify": 0}
+            "rs_verify": 0}
 
 # L2H's per-burst results, in the kernel's output order: int32, then bool
 HDR_INT = ("syndrome", "synd_weight", "datalen", "datalen_octets",
@@ -79,7 +80,7 @@ HDR_BOOL = ("reserved_bad", "too_long", "no_fec", "hdr_ok")
 # The front's largest window (csrc/l2.cu kFrontWin): S + 1 samples.
 FRONT_WIN = 8192
 
-# The constant bytes of L2P, L2D and RS (csrc/l2.cu kExpOff, kLogOff,
+# The constant bytes of L2P and RS (csrc/l2.cu kExpOff, kLogOff,
 # kPrbsOff, kConstBytes): GF(256) exp over two periods, log, and the
 # PRBS packed a payload octet, each padded to 16-byte chunks.
 CONST_LAYOUT = {"exp": 0, "log": 512, "prbs_octets": 768, "bytes": 2880}
@@ -280,10 +281,11 @@ def l2_header(symbols: torch.Tensor) -> dict:
     return l2_header_plain(symbols)
 
 
-# ------------------------------------------------------------------ L2D
+# ------------------------------------------------- L2P's deinterleave
 def l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
                           doct) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain L2D: the deinterleaved RS table of each selected burst.
+    """The deinterleaved RS table of each selected burst (L2P without
+    the decode).
 
     ``symbols`` (B, S) uint8; ``sel`` (Bp,) int64 the rows to decode,
     or None for all B; ``hdr_ok`` (B,) bool and ``num_blocks``,
@@ -340,7 +342,7 @@ def l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks, last_len, lf,
 
 def _payload_geometry(symbols, hdr_ok, num_blocks, last_len, lf,
                       doct) -> int:
-    """Check L2P's and L2D's burst arguments on the card; returns B."""
+    """Check L2P's burst arguments on the card; returns B."""
     dev = symbols.device
     _check_symbols(symbols)
     B = symbols.shape[0]
@@ -353,19 +355,14 @@ def _payload_geometry(symbols, hdr_ok, num_blocks, last_len, lf,
     return B
 
 
-# The row arguments of L2P (B, Bp) and L2D (its row index, Bp).
-_PAYLOAD_ROWS = {"l2_payload": [ctypes.c_int, ctypes.c_int],
-                 "l2_deinterleave": [ctypes.c_void_p, ctypes.c_int]}
-
-
-def _launch_payload(name: str, symbols, rows: tuple, geom: tuple,
+def _launch_payload(symbols, rows: tuple, geom: tuple,
                     outs: tuple) -> None:
-    """Launch ``name`` (L2P or L2D) on the current stream: the symbols,
-    ``rows`` (L2P's B and Bp; L2D's row index and Bp), the burst
-    arguments ``geom`` (hdr_ok, num_blocks, last_len, lf, doct), the
-    constant bytes, then the outputs ``outs`` (None is a null pointer)."""
-    fn = _launcher(f"{name}_launch",
-                   [ctypes.c_void_p, ctypes.c_int] + _PAYLOAD_ROWS[name]
+    """Launch L2P on the current stream: the symbols, ``rows`` (B and
+    Bp), the burst arguments ``geom`` (hdr_ok, num_blocks, last_len, lf,
+    doct), the constant bytes, then the outputs ``outs`` (None is a null
+    pointer)."""
+    fn = _launcher("l2_payload_launch",
+                   [ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * (len(geom) + len(outs) + 2))
 
     def ptr(x):
@@ -374,39 +371,8 @@ def _launch_payload(name: str, symbols, rows: tuple, geom: tuple,
         rc = fn(symbols.data_ptr(), symbols.shape[1], *rows,
                 *map(ptr, geom), _tables(symbols.device)["consts"].data_ptr(),
                 *map(ptr, outs), _stream(symbols))
-    _raise_on(rc, name)
-    launches[name] += 1
-
-
-def l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks, last_len, lf,
-                         doct) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel L2D on the current stream (no fallback).  Arguments
-    and results as :func:`l2_deinterleave_plain`."""
-    dev = symbols.device
-    if dev.type != "cuda":
-        raise ValueError("l2_deinterleave_cuda needs CUDA tensors")
-    geom = (hdr_ok, num_blocks, last_len, lf, doct)
-    Bp = _payload_geometry(symbols, *geom)
-    if sel is not None:
-        _check("sel", sel, torch.int64, 1, dev)
-        Bp = sel.shape[0]
-    tab = torch.empty((Bp, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
-    fec_row = torch.empty((Bp, MAX_BLOCKS), dtype=torch.int32, device=dev)
-    _launch_payload("l2_deinterleave", symbols,
-                    (None if sel is None else sel.data_ptr(), Bp), geom,
-                    (tab, fec_row))
-    return tab, fec_row
-
-
-def l2_deinterleave(symbols, sel, hdr_ok, num_blocks, last_len, lf, doct
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """L2D on the tensors' device: the kernel on CUDA, plain on CPU.
-    Arguments as :func:`l2_deinterleave_plain`."""
-    if _device_of(symbols) == "cuda":
-        return l2_deinterleave_cuda(symbols, sel, hdr_ok, num_blocks,
-                                    last_len, lf, doct)
-    return l2_deinterleave_plain(symbols, sel, hdr_ok, num_blocks,
-                                 last_len, lf, doct)
+    _raise_on(rc, "l2_payload")
+    launches["l2_payload"] += 1
 
 
 # ------------------------------------------------------------------- RS
@@ -501,7 +467,7 @@ def l2_payload_cuda(symbols, hdr_ok, num_blocks, last_len, lf, doct
     tab = torch.empty((B, MAX_BLOCKS, RS_N), dtype=torch.uint8, device=dev)
     counts, fec_row = torch.empty((2, B, MAX_BLOCKS), dtype=torch.int32,
                                   device=dev).unbind()
-    _launch_payload("l2_payload", symbols, (B, B), geom,
+    _launch_payload(symbols, (B, B), geom,
                     (tab, counts, fec_row, None))
     return tab, counts, fec_row
 
@@ -560,7 +526,7 @@ def l2_payload_capped_cuda(symbols, cap: int, hdr_ok, num_blocks, last_len,
     counts, fec_row = ints[:2 * cap * MAX_BLOCKS].view(
         2, cap, MAX_BLOCKS).unbind()
     blocks_row = ints[2 * cap * MAX_BLOCKS:]
-    _launch_payload("l2_payload", symbols, (B, cap), geom,
+    _launch_payload(symbols, (B, cap), geom,
                     (tab, counts, fec_row, blocks_row))
     return tab, counts, fec_row, blocks_row
 

@@ -6,17 +6,23 @@ the int path's results exactly (the channelizer's ``n0``, the gate's
 base ``delta``); :func:`pipeline.graph_key` keeps every block but the
 steady ones of the CUDA main path eager, and a CPU pipeline never
 captures; a packed copy taken before its sources change keeps their
-old values (``fetch.Packed``, ``graphs.Snapshot``); the launch counters'
-bookkeeping; the benchmark's ``graph_block_share`` readers.
+old values (``fetch.start`` with a packed buffer, ``graphs.Snapshot``);
+the launch counters' bookkeeping; the benchmark's ``graph_block_share``
+readers.
 
 On the card (marker ``cuda``; the file imports no JAX, so it runs there
 with ``--noconftest``): a graphed pipeline against an eager one on the
 same wideband blocks and live ``feed`` blocks, block by block, each key
 captured once, the launch counters alike, a capture with a fetch in
-flight, and steady dispatches under ``set_sync_debug_mode("error")``.
+flight, and steady dispatches under ``set_sync_debug_mode("error")``,
+each handing back a pending fetch into pinned memory; eager blocks (the
+first of a stream, every host-gated one) fetch the same way, the fetch
+thread running no operation on the device.
 """
+import threading
 import time
 import types
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -32,6 +38,8 @@ from dumpvdl2_tpu_torch.dsp.frontend import (bandpass_channelize, nco_dphi,
                                              prepare_taps)
 from dumpvdl2_tpu_torch.sim import frame_with_fcs, synthesize_iq_raw
 from dumpvdl2_tpu_torch.utils import fetch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from vdl2bench import run as harness
 
 CENTER = 136975000
@@ -157,12 +165,13 @@ def assert_tree_equal(got, want):
 
 def test_packed_copy_keeps_old_values():
     """A copy of pack_tree taken before the tree's tensors are
-    overwritten unpacks, as a Packed tree, to their old values."""
+    overwritten, given to fetch.start with the tree, unpacks to their
+    old values."""
     t = tree()
     want = fetch.coalesced_get(tree())
     buf = fetch.pack_tree(t).clone()
     overwrite(t)
-    got = fetch.coalesced_get(fetch.Packed(t, buf))
+    got = fetch.start(t, buf).get()
     assert got[0]["none"] is None
     assert_tree_equal(got, want)
     assert not np.array_equal(fetch.coalesced_get(t)[1], want[1])
@@ -427,5 +436,85 @@ def test_steady_dispatch_does_not_synchronize(cuda):
             trees.append(pipe._dispatch_block(b))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert all(isinstance(t[0], fetch.Packed) for t in trees)
+    assert all(isinstance(t[0], fetch.Pending) and t[0].host.is_pinned()
+               and t[0].ready is not None for t in trees)
     assert pipe.graph_captures == 1
+
+
+class DeviceOps(TorchDispatchMode):
+    """Notes every operation on a CUDA tensor run while it is entered
+    (on the entering thread only)."""
+
+    def __init__(self, ops: list):
+        super().__init__()
+        self.ops = ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(isinstance(x, torch.Tensor) and x.device.type == "cuda"
+               for x in tree_leaves((args, kwargs))):
+            self.ops.append(str(func))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_gate", [True, False])
+def test_eager_blocks_fetch_through_pinned_copies(cuda, monkeypatch,
+                                                  device_gate):
+    """An eager block (the stream's first, its halo still growing, and
+    every host-gated block) hands the fetch thread a pending fetch whose
+    pinned copy and event the main thread enqueued before that thread
+    ran; the fetch thread runs no operation on a device tensor, and the
+    frames equal a synchronous fetch's."""
+    n = 600_000
+    sig = scene(4 * n, seed=5)
+    blocks = [torch.as_tensor(np.stack([sig[i:i + n].real,
+                                        sig[i:i + n].imag]), device=cuda)
+              for i in range(0, 4 * n, n)]
+    started, seen, ops = [], [], []
+    start = fetch.start
+
+    def on_start(tree, buf=None):
+        pending = start(tree, buf)
+        started.append((threading.current_thread(), pending))
+        return pending
+    monkeypatch.setattr(fetch, "start", on_start)
+    pipe = VDL2Pipeline(FREQS, CENTER, FS, OS, max_candidates=16,
+                        device="cuda", device_gate=device_gate)
+    fetch_block = pipe._fetch
+
+    def watched(pending, blk):
+        seen.append((pending, blk.graphed))
+        with DeviceOps(ops):
+            return fetch_block(pending, blk)
+    pipe._fetch = watched
+    frames = []
+    for b in blocks:
+        frames += pipe.feed_planar(b)
+    frames += pipe.finish()
+    torch.cuda.synchronize()
+    assert ops == []
+    assert len(seen) == len(blocks)
+    assert all(th is threading.main_thread() for th, _ in started)
+    mine = [p for _, p in started]
+    for pending, graphed in seen:
+        assert any(pending is p for p in mine)
+        assert pending.host.is_pinned() and pending.ready is not None
+    # the first block's halo is still growing: eager in both modes
+    assert [g for _, g in seen] == ([False, False, True, True]
+                                    if device_gate else [False] * 4)
+    ref = VDL2Pipeline(FREQS, CENTER, FS, OS, max_candidates=16,
+                       device="cuda", device_gate=device_gate)
+
+    def synchronous(pending, blk):
+        done = Future()
+        done.set_result(pending.get())
+        return done
+    ref._submit_fetch = synchronous
+    want = []
+    for b in blocks:
+        want += ref.feed_planar(b)
+    want += ref.finish()
+    assert [(bytes(f.frame), f.metadata.freq) for f in frames] == \
+        [(bytes(f.frame), f.metadata.freq) for f in want]
+    assert len(want) > 0

@@ -10,8 +10,11 @@ must agree (bytes, freq, datalen_octets, synd_weight,
 num_fec_corrections and idx exactly; ppm_error, frame_pwr_dbfs and
 nf_pwr_dbfs within 1e-4), and so must the per-channel counters and
 carried state.  The port's host-L2 frames must also equal its own
-device-L2 frames.
+device-L2 frames (host-gated), also where each fetch is still in flight
+when later blocks are dispatched.
 """
+import time
+
 import numpy as np
 import pytest
 from _torch_port import (assert_frames_match, frame_keys,  # noqa: F401
@@ -26,17 +29,33 @@ from dumpvdl2_tpu_torch.core.pipeline import (VDL2Pipeline, resolve_device_gate,
                                               resolve_device_l2)
 
 
-def _run_both(monkeypatch, sig):
+def _slowed(pipe, slow_fetch: float):
+    """``pipe`` with its fetch thread sleeping ``slow_fetch`` s before
+    each block's wait."""
+    if slow_fetch:
+        fetch_block = pipe._fetch
+
+        def slow(pending, blk):
+            time.sleep(slow_fetch)
+            return fetch_block(pending, blk)
+        pipe._fetch = slow
+    return pipe
+
+
+def _run_both(monkeypatch, sig, slow_fetch: float = 0.0):
     monkeypatch.setenv("DUMPVDL2_TPU_L2", "0")
     jp = JaxPipeline(FREQS, CENTER, FS, OS)
     assert not jp.use_device_l2 and not jp.use_device_gate
-    tp = VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu", device_l2=False)
+    tp = _slowed(VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu",
+                              device_l2=False), slow_fetch)
     assert not tp.use_device_l2 and not tp.use_device_gate
     want, got = _feed_all(jp, sig), _feed_all(tp, sig)
     assert_frames_match(got, want)
     _assert_channels_match(tp, jp)
-    dev = _feed_all(VDL2Pipeline(FREQS, CENTER, FS, OS, device="cpu",
-                                 device_l2=True, device_gate=False), sig)
+    dev = _feed_all(_slowed(VDL2Pipeline(FREQS, CENTER, FS, OS,
+                                         device="cpu", device_l2=True,
+                                         device_gate=False), slow_fetch),
+                    sig)
     assert_frames_match(got, dev)
     return got, tp
 
@@ -61,10 +80,12 @@ def test_three_burst_scene(monkeypatch):
         assert (frame_with_fcs(payload), int(CENTER + off)) in have
 
 
-def test_block_boundary_and_eof_scene(monkeypatch):
+@pytest.mark.parametrize("slow_fetch", [0.0, 0.2])
+def test_block_boundary_and_eof_scene(monkeypatch, slow_fetch):
     """Bursts whose preamble, header or payload straddle the feed
     boundary, one at stream start, and one cut by the end of the stream
-    (decided by finish())."""
+    (decided by finish()); with ``slow_fetch``, every block's fetch is
+    still pending when the next block is dispatched."""
     rng = np.random.default_rng(5)
     sig = _noise(2 * BLOCK, seed=6)
     for at, ch, n in ((0, 0, 30), (BLOCK - 1200, 1, 40),
@@ -74,7 +95,7 @@ def test_block_boundary_and_eof_scene(monkeypatch):
                    FREQS[ch] - CENTER, seed=at)
         end = min(sig.size, at + b.size)
         sig[at:end] += b[:end - at] * 0.3
-    got, tp = _run_both(monkeypatch, sig)
+    got, tp = _run_both(monkeypatch, sig, slow_fetch)
     assert len(got) >= 4
     assert tp.channels[1].stats.get("decoder.errors.eof_truncated", 0) >= 1
 

@@ -8,7 +8,7 @@ drain returned add up, ``step_ms`` is the sum of the synchronized
 spans, the ring stays bounded, ``latest()`` follows the newest
 pipeline, a profiler trace holds a ``vdl2.*`` annotation for each span
 on the log's clock (the fetch on its own thread), and outside a
-profiler no ``record_function`` is entered.  The CPU leaves the device
+profiler no profiler range is entered.  The CPU leaves the device
 fields None.  Each reader is checked on a made-up log.
 """
 import json
@@ -177,8 +177,8 @@ def test_latest_is_the_newest_pipelines_log():
 
 def test_no_record_function_outside_a_profiler(scene, monkeypatch):
     def refuse(name):
-        raise AssertionError(f"record_function({name!r}) entered")
-    monkeypatch.setattr(spans, "record_function", refuse)
+        raise AssertionError(f"profiler range {name!r} entered")
+    monkeypatch.setattr(spans, "_enter", refuse)
     pipe = new_pipeline()
     for at in range(0, 3 * BLOCK, BLOCK):
         pipe.feed(scene[at:at + BLOCK])
